@@ -1,0 +1,369 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero):
+  1. build the CUDA kernels (nvcc, sm_90a) and the native entropy library
+     from the sources in this checkout;
+  2. hold every kernel against its plain PyTorch version on the card,
+     bit for bit, at the main path's shapes with clamped origins, a
+     clamped plane index and planted slab-search ties;
+  3. encode 176x144, 1 I + 4 P frames, on cuda and on cpu: the Annex-B
+     bytes and the reconstructions must be identical;
+  4. the main path: 1280x720 IPPP at QP32, rd=ULTRAFAST, 1 I + 8 P frames
+     through Encoder.encode_async/flush; every kernel must have been
+     launched; prints fps, the card's name and power limit, and per
+     kernel its time, error and bound on the inputs one P frame of the
+     warm-up encode gave it.
+The last line of stdout is {"ok": true, "device": {...}}.
+"""
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: CUDA is not available")
+
+from homerhevc_torch.api import Encoder                       # noqa: E402
+from homerhevc_torch.config import EncoderConfig, RDMode      # noqa: E402
+from homerhevc_torch.entropy import binding                   # noqa: E402
+from homerhevc_torch.ops import kernels                       # noqa: E402
+from homerhevc_torch.utils.synthetic import synthetic_video   # noqa: E402
+
+DEV = torch.device("cuda")
+# Published H100 SXM peaks at 700 W (NVIDIA data sheet): device memory
+# 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, used here for
+# the slab search's 32-bit integer sub/abs/add (the card's int32 rate is
+# no higher, so the bound stays a lower bound on time)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12
+KERNELS = {
+    "gather_windows": dict(
+        source="homerhevc_torch/csrc/gather_windows.cu",
+        replaces="homerhevc_tpu/ops/pallas_kernels.py:87"),
+    "gather_windows_ref": dict(
+        source="homerhevc_torch/csrc/gather_windows.cu",
+        replaces="homerhevc_tpu/ops/pallas_kernels.py:152"),
+    "slab_search": dict(
+        source="homerhevc_torch/csrc/slab_search.cu",
+        replaces="homerhevc_tpu/ops/pallas_kernels.py:237"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def i32(a) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=DEV)
+
+
+def same(got: torch.Tensor, want: torch.Tensor, what: str) -> int:
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err != 0:
+        raise AssertionError(f"{what}: kernel differs from plain, "
+                             f"max abs err {err}")
+    return err
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call on the card (CUDA events, warmed up)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+# ---------------------------------------------------------------- phase 1
+def phase_build():
+    t0 = time.perf_counter()
+    secs = kernels.build(verbose=True)
+    binding.load_library()
+    log(f"[build] kernels {secs} native+all {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------- phase 2
+def main_path_calls(cfg):
+    """The shapes of the kernel calls one P frame makes at this config:
+    name -> list of (n, size, plane shape) or (h, w, bs, ry, rx)."""
+    h, w = cfg.padded_height, cfg.padded_width
+    n = (h // 16) * (w // 16)
+    pad = 144                                   # me.REF_PAD
+    half = (h // 2 + 2 * 78, w // 2 + 2 * 78)   # coarse refine pad 6+72
+    full = (h + 2 * pad, w + 2 * pad)
+    chroma = (h // 2 + pad, w // 2 + pad)
+    return dict(
+        gather_windows=[(n, 20, half), (2 * n, 22, full), (n, 25, full),
+                        (2 * n, 23, full)],
+        gather_windows_ref=[(2 * n, 11, (2,) + chroma)],
+        slab_search=[(h // 8, w // 8, 2, 8, 16), (h // 2, w // 2, 8, 3, 3)])
+
+
+def gather_args(rng, n, size, shape):
+    plane = i32(rng.integers(0, 1 << 20, shape))
+    hp, wp = shape[-2:]
+    by = rng.integers(-8, hp - size + 8, n)
+    bx = rng.integers(-8, wp - size + 8, n)
+    by[:3] = (-5, hp - 1, hp + 40)              # clamped origins
+    bx[:3] = (wp + 9, -1, wp - 1)
+    return plane, i32(by), i32(bx)
+
+
+def slab_args(rng, h, w, bs, ry, rx):
+    cur = rng.integers(0, 1020, (h, w))
+    slab = rng.integers(0, 1020, (h + 2 * ry, w + 2 * rx))
+    # planted exact matches at two offsets of equal |mv| cost
+    b0, b1 = min(4 * bs, h - bs), min(4 * bs, w - bs)
+    blk = cur[b0:b0 + bs, b1:b1 + bs]
+    slab[ry + b0 - 1:ry + b0 - 1 + bs, rx + b1:rx + b1 + bs] = blk
+    slab[ry + b0:ry + b0 + bs, rx + b1 - 1:rx + b1 - 1 + bs] = blk
+    # a block whose every offset ties (flat content)
+    cur[:bs, :bs] = 7
+    slab[:2 * ry + bs, :2 * rx + bs] = 7
+    return i32(cur), i32(slab)
+
+
+def phase_compare(cfg):
+    """Edge cases at the main path's shapes: one window more than the
+    main path gives (not a multiple of a CTA), clamped origins and plane
+    index, planted ties."""
+    rng = np.random.default_rng(0)
+    calls = main_path_calls(cfg)
+    for n, size, shape in calls["gather_windows"]:
+        plane, by, bx = gather_args(rng, n + 1, size, shape)
+        same(kernels.gather_windows(plane, by, bx, size),
+             kernels.gather_windows_plain(plane[None], None, by, bx, size),
+             f"gather_windows size={size}")
+    for n, size, shape in calls["gather_windows_ref"]:
+        planes, by, bx = gather_args(rng, n + 1, size, shape)
+        ri = i32(rng.integers(-1, shape[0] + 1, n + 1))
+        same(kernels.gather_windows_ref(planes, ri, by, bx, size),
+             kernels.gather_windows_plain(planes, ri, by, bx, size),
+             "gather_windows_ref")
+    for (h, w, bs, ry, rx) in calls["slab_search"]:
+        cur, slab = slab_args(rng, h, w, bs, ry, rx)
+        same(kernels.slab_search(cur, slab, bs, ry, rx),
+             kernels.slab_search_plain(cur, slab, bs, ry, rx),
+             f"slab_search {h}x{w} bs={bs}")
+    # argmin's first-minimum rule on the card (the port relies on it)
+    x = torch.tensor([[3, 1, 1, 2], [0, 0, 0, 0]], device=DEV)
+    assert torch.argmin(x, 1).tolist() == [1, 0], "argmin tie rule"
+    assert torch.argmin(x.T.contiguous(), 0).tolist() == [1, 0]
+    log(f"[compare] all kernels bit-identical to their plain versions")
+
+
+# ---------------------------------------------------------------- phase 3
+def encode_all(enc, frames):
+    out = []
+    for f in frames:
+        out += enc.encode_async(*f)
+    out += enc.flush()
+    return out
+
+
+def phase_cpu_parity():
+    cfg = EncoderConfig(width=176, height=144, qp=32, intra_period=100,
+                        rd_mode=RDMode.RD_ULTRAFAST)
+    frames = synthetic_video(5, 144, 176)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        enc = Encoder(cfg, device=dev)
+        out = encode_all(enc, frames)
+        res[dev] = ([f.nalus for f in out],
+                    [r.cpu().numpy() for r in enc._ref])
+    assert len(res["cuda"][0]) == 5
+    assert res["cuda"][0] == res["cpu"][0], "cuda/cpu Annex-B bytes differ"
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        assert np.array_equal(a, b), "cuda/cpu reconstructions differ"
+    log(f"[parity] 176x144 1I+4P: cuda == cpu "
+        f"({sum(len(x) for x in res['cuda'][0])} bytes)")
+
+
+# ---------------------------------------------------------------- phase 4
+def psnr(a, b) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+WARM_P = 4                               # P frames of the warm-up encode
+
+
+def record_calls(fn):
+    """Run fn with every kernel wrapper recording a copy of its
+    arguments; returns {name: [args, ...]} in call order."""
+    calls = {k: [] for k in KERNELS}
+    orig = {k: getattr(kernels, k) for k in KERNELS}
+
+    def recorder(name):
+        def call(*args):
+            calls[name].append(tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args))
+            return orig[name](*args)
+        return call
+    for k in KERNELS:
+        setattr(kernels, k, recorder(k))
+    try:
+        fn()
+    finally:
+        for k, f in orig.items():
+            setattr(kernels, k, f)
+    return calls
+
+
+def phase_main(cfg, n_p=8):
+    """Returns the launch counts of the main path's run and the kernel
+    calls one P frame of the warm-up made."""
+    frames = synthetic_video(1 + n_p, cfg.height, cfg.width)
+    warm = Encoder(cfg)                  # warm-up: allocator, cuBLAS, libs
+    rec = record_calls(lambda: encode_all(warm, frames[:1 + WARM_P]))
+    torch.cuda.synchronize()
+    per_frame = {}
+    for k, v in rec.items():
+        assert v and len(v) % WARM_P == 0, (k, len(v))
+        per_frame[k] = v[:len(v) // WARM_P]
+    # phase 2 checked the edge cases at these shapes
+    shapes = {k: sorted(tuple(a[0].shape) + a[2:]
+                        if k == "slab_search" else
+                        (a[-2].numel(), a[-1], tuple(a[0].shape))
+                        for a in v) for k, v in per_frame.items()}
+    assert shapes == {k: sorted(v) for k, v in main_path_calls(cfg).items()},\
+        shapes
+
+    enc = Encoder(cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = enc.encode_async(*frames[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for f in frames[1:]:
+        out += enc.encode_async(*f)
+    out += enc.flush()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = kernels.launch_counts()
+    assert len(out) == 1 + n_p, len(out)
+    for k in KERNELS:
+        assert counts[k] > 0, f"kernel {k} was not launched on the main path"
+        assert counts[k] == n_p * len(per_frame[k]), \
+            (k, counts[k], n_p, len(per_frame[k]))
+    y = enc._ref[0].cpu().numpy()[:cfg.height, :cfg.width]
+    p = psnr(frames[-1][0], y)
+    assert 28.0 < p < 60.0, f"implausible Y PSNR {p:.2f} dB"
+    bits = [f.bits for f in out]
+    log(f"[main] 720p 1I+{n_p}P: I frame {t1 - t0:.3f}s, {n_p} P frames "
+        f"{t2 - t1:.3f}s -> P fps {n_p / (t2 - t1):.3f}, all fps "
+        f"{len(out) / (t2 - t0):.3f}; last-frame Y PSNR {p:.2f} dB; "
+        f"bits {bits}")
+    return counts, per_frame
+
+
+def gather_read_bytes(shape, ri, by, bx, size) -> int:
+    """Bytes of the planes a gather must read: the distinct 32-byte
+    sectors its window rows touch, from this call's clamped origins."""
+    r, hp, wp = shape
+    byc = by.cpu().numpy().clip(0, hp - size).astype(np.int64)
+    bxc = bx.cpu().numpy().clip(0, wp - size).astype(np.int64)
+    ric = (np.zeros_like(byc) if ri is None else
+           ri.cpu().numpy().clip(0, r - 1).astype(np.int64))
+    rows = (ric * hp + byc)[:, None] + np.arange(size)[None]
+    first = (rows * wp + bxc[:, None]) * 4 // 32
+    last = (rows * wp + bxc[:, None] + size - 1) * 4 // 32
+    n_sec = (r * hp * wp * 4 + 31) // 32
+    edge = np.zeros(n_sec + 1, np.int64)
+    np.add.at(edge, first.ravel(), 1)
+    np.add.at(edge, last.ravel() + 1, -1)
+    return 32 * int((np.cumsum(edge[:n_sec]) > 0).sum())
+
+
+def kernel_report(counts, per_frame):
+    """Per kernel, on the inputs one P frame gave it: the largest
+    difference from the plain version, the time of the frame's calls
+    (kernel and plain version) and the least time the card could take."""
+    rows = []
+    for name, calls in per_frame.items():
+        ms = plain_ms = bound = by_ops = 0.0
+        err = 0
+        for args in calls:
+            f = (lambda a=args, k=name: getattr(kernels, k)(*a))
+            if name == "slab_search":
+                cur, slab, bs, ry, rx = args
+                g = (lambda a=args: kernels.slab_search_plain(*a))
+                h, w = cur.shape
+                nbytes = 4 * (cur.numel() + slab.numel()
+                              + (h // bs) * (w // bs))
+                ops = 3.0 * (2 * ry + 1) * (2 * rx + 1) * h * w
+            elif name == "gather_windows":
+                plane, by, bx, size = args
+                g = (lambda p=plane, a=by, b=bx, s=size:
+                     kernels.gather_windows_plain(p[None], None, a, b, s))
+                n = by.numel()
+                nbytes = (gather_read_bytes((1,) + tuple(plane.shape), None,
+                                            by, bx, size)
+                          + 4 * (2 * n + n * size * size))
+                ops = 0.0
+            else:
+                planes, ri, by, bx, size = args
+                g = (lambda a=args: kernels.gather_windows_plain(*a))
+                n = by.numel()
+                nbytes = (gather_read_bytes(tuple(planes.shape), ri, by, bx,
+                                            size)
+                          + 4 * (3 * n + n * size * size))
+                ops = 0.0
+            err = max(err, same(f(), g(), f"{name} on main-path inputs"))
+            ms += time_ms(f, 50)
+            plain_ms += time_ms(g, 5)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / INT32_OPS_PER_S * 1e3
+            bound += max(t_bytes, t_ops)
+            by_ops += t_ops - t_bytes
+        rows.append(dict(
+            name=name, route="cuda", source=KERNELS[name]["source"],
+            replaces=KERNELS[name]["replaces"], launches=counts[name],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by="operations" if by_ops > 0 else "bytes",
+            library_ms=None))
+    return rows
+
+
+def main():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
+                        rd_mode=RDMode.RD_ULTRAFAST)
+    phase_compare(cfg)
+    phase_cpu_parity()
+    counts, per_frame = phase_main(cfg)
+    rows = kernel_report(counts, per_frame)
+    for r in rows:
+        log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/P-frame "
+            f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} "
+            f"{r['bound_by']}), {r['launches']} launches")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print(json.dumps({"kernels": rows}))
+    print(smi[0] if smi else "nvidia-smi: no output")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

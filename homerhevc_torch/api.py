@@ -1,0 +1,618 @@
+"""Public encoder API: YUV420 8-bit frames in, Annex-B bytes out.
+
+Port of homerhevc_tpu/api.py.  Device compute (PyTorch, on the card by
+default) produces one packed int16 record per frame; a host worker thread
+pulls it (one device->host copy per chunk) and the native C++ library
+entropy-codes it, overlapping the device compute of the next chunk.
+
+Supported configuration: IPPP (intra_period > 1) at rd=ULTRAFAST, one
+reference frame, fixed QP, single device.  Other configurations raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+from typing import BinaryIO, Optional
+
+import numpy as np
+import torch
+
+from homerhevc_torch.config import (BitrateMode, EncoderConfig, PerfMode,
+                                    RDMode)
+from homerhevc_torch.entropy import binding
+from homerhevc_torch.models import inter_frame, intra_frame
+from homerhevc_torch.ops import packing
+from homerhevc_torch.ops import sao as sao_ops
+from homerhevc_torch.rc import RateControl
+from homerhevc_torch.utils.profiler import stage
+
+
+@dataclasses.dataclass
+class CodedFrame:
+    poc: int
+    nalus: bytes            # Annex-B bytes (parameter sets + slice)
+    bits: int
+    recon: Optional[tuple] = None  # (Y, U, V) uint8, cropped
+    psnr: Optional[tuple] = None
+
+
+def _pad_plane(p: np.ndarray, mult: int) -> np.ndarray:
+    h, w = p.shape
+    ph = (h + mult - 1) // mult * mult
+    pw = (w + mult - 1) // mult * mult
+    if (ph, pw) == (h, w):
+        return p
+    return np.pad(p, ((0, ph - h), (0, pw - w)), mode="edge")
+
+
+def check_supported(cfg: EncoderConfig):
+    """Raise NotImplementedError for configurations outside the port."""
+    bad = []
+    if cfg.rd_mode != RDMode.RD_ULTRAFAST:
+        bad.append("rd_mode other than RD_ULTRAFAST")
+    if cfg.num_ref_frames != 1:
+        bad.append("num_ref_frames=2")
+    if cfg.bitrate_mode != BitrateMode.FIXED_QP or cfg.adaptive_qp:
+        bad.append("CBR/VBR or adaptive_qp")
+    if cfg.wpp_substreams:
+        bad.append("wpp_substreams")
+    if cfg.tile_cols > 1 or cfg.tile_rows > 1 or cfg.tile_auto:
+        bad.append("tiles")
+    if cfg.scaling_lists:
+        bad.append("scaling_lists")
+    if cfg.num_chips > 1 or cfg.num_hosts > 1:
+        bad.append("num_chips/num_hosts > 1")
+    if cfg.intra_period == 1:
+        bad.append("all-intra (intra_period == 1) chunks")
+    if bad:
+        raise NotImplementedError("not ported yet: " + ", ".join(bad))
+
+
+def state_from_numpy(state: dict, device) -> dict:
+    """Checkpoint state (numpy arrays / scalars, the save_checkpoint
+    format) -> the same dict with the reference planes as int32 tensors
+    on `device`."""
+    out = {}
+    for k, v in state.items():
+        if k.startswith(("ref_", "ref2_")):
+            out[k] = torch.as_tensor(np.asarray(v, np.int32), device=device)
+        else:
+            out[k] = v
+    return out
+
+
+class Encoder:
+    """HEVC encoder: YUV420 8-bit in, Annex-B out.  Runs on the CUDA
+    device unless `device` says otherwise (the tests pass "cpu")."""
+
+    def __init__(self, cfg: EncoderConfig, device=None):
+        self.cfg = cfg.validate()
+        check_supported(cfg)
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Encoder: CUDA is not available; pass "
+                               "device='cpu' to run on the CPU")
+        self.device = dev
+        self.ccfg = binding.make_cfg(cfg)
+        binding.load_library()
+        self._headers = binding.write_parameter_sets(self.ccfg)
+        self._poc = 0
+        self._gop_poc = 0
+        self._ref = None
+        self._out: list[CodedFrame] = []
+        self._pending: list = []
+        self._inbuf: list = []
+        self._rc = RateControl(cfg)
+        self._force_idr = False
+        self._worker = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+
+    def _p_knobs(self) -> dict:
+        """P-frame knobs of rd=ULTRAFAST (the reference's speed ladder)."""
+        cfg = self.cfg
+        return dict(
+            block=16, sign_hiding=cfg.sign_hiding,
+            deblocking=cfg.deblocking, sao_enabled=cfg.sao,
+            intra_fallback=False, chroma_rd_scale=3.0,
+            chroma_qp_offset=cfg.chroma_qp_offset,
+            me_precision=cfg.motion_estimation_precision,
+            me_subpel_r=3 if cfg.performance_mode == PerfMode.FULL_COMPUTATION
+            else 2,
+            merge_rounds=1, fallback_rounds=1, quadtree_majority=False,
+            inter_nxn=False, true_size=cfg.code_true_size)
+
+    def control(self, cfg: EncoderConfig):
+        """Reconfigure mid-stream (drains in-flight work first)."""
+        if getattr(self, "_worker", None) is not None:
+            self.flush()
+            self._worker.shutdown(wait=True)
+        out = list(getattr(self, "_out", []))
+        self.__init__(cfg, self.device)
+        self._out = out
+
+    def encode(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
+               compute_recon: bool = True) -> CodedFrame:
+        """Encode one frame, blocking until its bytes are ready."""
+        pend = self._dispatch(y, u, v, compute_recon)
+        frames = self._finalize(pend)
+        for fr in frames:
+            self._account(fr)
+        return frames[0]
+
+    def encode_async(self, y: np.ndarray, u: np.ndarray, v: np.ndarray
+                     ) -> list:
+        """Pipelined encode: buffers up to cfg.frames_per_launch P frames
+        into one device chunk, entropy-coding the previous chunk on the
+        host worker meanwhile.  Returns newly completed CodedFrames;
+        drain the tail with flush()."""
+        done = []
+        next_poc = self._poc + len(self._inbuf)
+        is_idr = (self.cfg.intra_period > 1
+                  and next_poc % self.cfg.intra_period == 0) or \
+            (self._ref is None and not self._pending
+             and not self._inbuf) or self._force_idr
+        if is_idr:
+            done += self._flush_inbuf()
+            self._force_idr = False
+            self._pending.append(
+                self._submit(self._dispatch_i(y, u, v, False)))
+        else:
+            self._inbuf.append((y, u, v))
+            if len(self._inbuf) >= max(self.cfg.frames_per_launch, 1):
+                done += self._flush_inbuf()
+        done += self._drain(keep=1)
+        return done
+
+    def flush(self) -> list:
+        done = self._flush_inbuf()
+        done += self._drain(keep=0)
+        return done
+
+    def _submit(self, pend):
+        return self._worker.submit(self._finalize, pend)
+
+    def _drain(self, keep: int) -> list:
+        """Collect finalized chunks in FIFO order, keeping up to `keep`
+        in flight; RC and scene-change bookkeeping happen here, on the
+        calling thread."""
+        done = []
+        while len(self._pending) > keep:
+            frs = self._pending.pop(0).result()
+            for fr in frs:
+                self._account(fr)
+            self._out.extend(frs)
+            done += frs
+        return done
+
+    def _account(self, fr: CodedFrame):
+        """Post-frame rate-control and scene-change bookkeeping."""
+        is_idr = fr._is_idr
+        self._rc.end_pic(fr.bits, is_idr, avg_dist=fr._dist,
+                         qp=getattr(fr, "_qp", None))
+        if (not is_idr and self.cfg.scene_change_reinit
+                and fr._intra_frac > 0.5):
+            self._force_idr = True
+
+    def _flush_inbuf(self) -> list:
+        if self._inbuf:
+            frames = self._inbuf
+            self._inbuf = []
+            self._pending.append(self._submit(
+                self._dispatch_p_chunk(frames)))
+        return self._drain(keep=1)
+
+    def _dispatch(self, y, u, v, compute_recon):
+        """Single-frame dispatch (synchronous encode path)."""
+        cfg = self.cfg
+        is_idr = (cfg.intra_period > 1
+                  and self._poc % cfg.intra_period == 0) or \
+            self._ref is None or self._force_idr
+        self._force_idr = False
+        if is_idr:
+            return self._dispatch_i(y, u, v, compute_recon)
+        return self._dispatch_p_chunk([(y, u, v)], compute_recon, k=1)
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _mark(self):
+        """A CUDA event behind the work just enqueued (the worker thread
+        waits on it before touching the chunk's tensors)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _dispatch_i(self, y, u, v, compute_recon=False):
+        cfg = self.cfg
+        ctu = cfg.ctu_size
+        yp = _pad_plane(np.asarray(y, np.uint8), ctu)
+        up = _pad_plane(np.asarray(u, np.uint8), ctu // 2)
+        vp = _pad_plane(np.asarray(v, np.uint8), ctu // 2)
+        qp = self._rc.start_pic(True)
+        self._gop_poc = 0
+        out = intra_frame.encode_frame(
+            self._to_dev(yp), self._to_dev(up), self._to_dev(vp), qp=qp,
+            ctu=ctu, sign_hiding=cfg.sign_hiding,
+            deblocking=cfg.deblocking, sao_enabled=cfg.sao,
+            chroma_qp_offset=cfg.chroma_qp_offset,
+            vis_h=cfg.height,
+            vis_w=cfg.width, true_size=cfg.code_true_size)
+        self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
+        pend = dict(kind="i", out=out, qp=qp, poc=self._poc,
+                    gop_poc=self._gop_poc, padded=yp.shape,
+                    orig=(y, u, v) if compute_recon else None,
+                    event=self._mark())
+        self._poc += 1
+        self._gop_poc += 1
+        return pend
+
+    def _dispatch_p_chunk(self, frames, compute_recon=False, k=None):
+        cfg = self.cfg
+        ctu = cfg.ctu_size
+        n_real = len(frames)
+        if k is None:
+            k = max(cfg.frames_per_launch, 1)
+        if n_real < k:
+            # a partial chunk re-encodes its last frame; that duplicate's
+            # reconstruction becomes the reference, so the next frame must
+            # be an IDR for the stream to stay decodable
+            frames = list(frames) + [frames[-1]] * (k - n_real)
+            self._force_idr = True
+        else:
+            frames = list(frames)
+        buf = np.concatenate([np.asarray(f[i], np.uint8).ravel()
+                              for i in range(3) for f in frames])
+        qps = self._rc.project_chunk(k)
+        out = inter_frame.encode_p_chunk_packed(
+            self._to_dev(buf), *self._ref, k=k, vis_h=cfg.height,
+            vis_w=cfg.width, ctu=ctu, qp=qps, **self._p_knobs())
+        self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
+        pend = dict(kind="p", out=out, qps=qps, poc=self._poc,
+                    gop_poc=self._gop_poc,
+                    padded=(-cfg.height % ctu + cfg.height,
+                            -cfg.width % ctu + cfg.width),
+                    n=n_real, orig=frames[-1] if compute_recon else None,
+                    event=self._mark())
+        self._poc += n_real
+        self._gop_poc += n_real
+        return pend
+
+    def _records(self, packed, pend):
+        """Per-frame (pend, record, is_idr) triples of a pulled chunk."""
+        cfg = self.cfg
+        if pend["kind"] == "i":
+            yield pend, self._i_record(packed, pend, cfg), True
+        else:
+            for k in range(pend["n"]):
+                pk = dict(pend, poc=pend["poc"] + k,
+                          gop_poc=pend["gop_poc"] + k, k=k)
+                yield pk, self._p_record(packed[k], pk, cfg), False
+
+    @staticmethod
+    def _host(t: torch.Tensor) -> np.ndarray:
+        return t.cpu().numpy()
+
+    def _finalize(self, pend) -> list:
+        """Worker thread: ONE device->host pull of the chunk's packed
+        records, then entropy coding."""
+        out = pend["out"]
+        if pend.get("event") is not None:
+            pend["event"].synchronize()
+        with stage("transfer"):
+            packed = self._host(out["packed"])
+        frames = []
+        for pk, rec, is_idr in self._records(packed, pend):
+            frames.append(self._emit(rec, pk, is_idr))
+        if pend["orig"] is not None:
+            y, u, v = pend["orig"]
+            fr = frames[-1]
+            fr.recon = tuple(
+                self._host(out[n]).astype(np.uint8)[:p.shape[0], :p.shape[1]]
+                for n, p in (("recon_y", y), ("recon_u", u),
+                             ("recon_v", v)))
+            fr.psnr = tuple(_psnr(a, b) for a, b in zip((y, u, v), fr.recon))
+        return frames
+
+    def _emit(self, rec, pend, is_idr: bool) -> CodedFrame:
+        with stage("entropy"):
+            slice_bytes = binding.encode_slice(self.ccfg, rec)
+        nalus = (self._headers if is_idr else b"") + slice_bytes
+        frame = CodedFrame(poc=pend["poc"], nalus=nalus,
+                           bits=len(slice_bytes) * 8)
+        frame._is_idr = is_idr
+        frame._intra_frac = pend.get("intra_frac", 0.0)
+        frame._dist = pend.get("dist")
+        frame._qp = int(pend["qps"][pend["k"]]) if "qps" in pend \
+            else int(pend["qp"])
+        return frame
+
+    @staticmethod
+    def _unpack(packed, h, w):
+        ny, nc = h * w, (h // 2) * (w // 2)
+        coeff_y = packed[:ny].reshape(h, w)
+        coeff_cb = packed[ny:ny + nc].reshape(h // 2, w // 2)
+        coeff_cr = packed[ny + nc:ny + 2 * nc].reshape(h // 2, w // 2)
+        return coeff_y, coeff_cb, coeff_cr, packed[ny + 2 * nc:]
+
+    def _apply_sao_fields(self, rec, tail, h, w):
+        """Fill the record's SAO maps from the packed tail, with
+        merge-left / merge-up where the derived params coincide."""
+        ctus_y, ctus_x = h // 64, w // 64
+        t, off, bp = sao_ops.unpack_sao_fields(tail, ctus_y, ctus_x)
+        n_real = ctus_y * ctus_x
+        nctu = (h // 64 + 1) * (w // 64 + 1) * 4
+        sao_type = np.zeros(nctu * 3, np.uint8)
+        sao_type.reshape(-1, 3)[:n_real] = \
+            t.transpose(1, 2, 0).reshape(-1, 3)
+        sao_off = np.zeros(nctu * 3 * 4, np.int8)
+        sao_off.reshape(-1, 3, 4)[:n_real] = \
+            off.transpose(1, 2, 0, 3).reshape(-1, 3, 4)
+        sao_bp = np.zeros(nctu * 3, np.uint8)
+        sao_bp.reshape(-1, 3)[:n_real] = \
+            bp.transpose(1, 2, 0).reshape(-1, 3)
+        rec.sao_type = sao_type
+        rec.sao_offset = sao_off
+        rec.sao_band_pos = sao_bp
+        tg = sao_type.reshape(-1, 3)[:n_real].reshape(ctus_y, ctus_x, 3)
+        og = sao_off.reshape(-1, 3, 4)[:n_real] \
+            .reshape(ctus_y, ctus_x, 12)
+        bg = sao_bp.reshape(-1, 3)[:n_real].reshape(ctus_y, ctus_x, 3)
+        allp = np.concatenate([tg, og, bg], axis=-1)
+        eq_l = np.zeros((ctus_y, ctus_x), bool)
+        eq_l[:, 1:] = (allp[:, 1:] == allp[:, :-1]).all(-1)
+        eq_u = np.zeros((ctus_y, ctus_x), bool)
+        eq_u[1:, :] = (allp[1:] == allp[:-1]).all(-1)
+        merge = np.where(eq_l, 1, np.where(eq_u, 2, 0)).astype(np.uint8)
+        sao_merge = np.zeros(nctu, np.uint8)
+        sao_merge[:n_real] = merge.reshape(-1)
+        rec.sao_merge = sao_merge
+        rec.sao_luma = True
+        rec.sao_chroma = True
+        return rec
+
+    # -- checkpoint / resume: reference planes + POC counters + RC state
+    def save_checkpoint(self, path: str):
+        assert not self._pending and not self._inbuf, \
+            "flush() before checkpointing"
+        state = dict(poc=self._poc, gop_poc=self._gop_poc,
+                     rc=self._rc.state_dict())
+        if self._ref is not None:
+            for n, t in zip(("ref_y", "ref_u", "ref_v"), self._ref):
+                state[n] = self._host(t).astype(np.int32)
+        np.savez(path, **_flatten_ckpt(state))
+
+    def load_checkpoint(self, path: str):
+        z = np.load(path)
+        st = state_from_numpy({k: z[k] for k in z.files}, self.device)
+        self._poc = int(st["poc"])
+        self._gop_poc = int(st["gop_poc"])
+        self._rc.load_state_dict(
+            {k[3:]: float(st[k]) if k != "rc.num_encoded_frames"
+             else int(st[k]) for k in st if k.startswith("rc.")})
+        self._ref = (st["ref_y"], st["ref_u"], st["ref_v"]) \
+            if "ref_y" in st else None
+        if "ref2_y" in st:
+            raise NotImplementedError("two-reference checkpoints")
+        self._pending.clear()
+        self._out.clear()
+
+    def get_coded_frame(self) -> Optional[CodedFrame]:
+        return self._out.pop(0) if self._out else None
+
+    @staticmethod
+    def write_annex_b_output(frame: CodedFrame, f: BinaryIO):
+        f.write(frame.nalus)
+
+    def close(self):
+        self._out.clear()
+
+    # -- packed device buffer -> host FrameRecord --
+    def _i_record(self, packed, pend, cfg) -> binding.FrameRecord:
+        h, w = pend["padded"]
+        h4, w4 = h // 4, w // 4
+        bh, bw = h // 16, w // 16
+        cy, cb, cr, tail = self._unpack(packed, h, w)
+        n8 = (2 * bh) * (2 * bw)
+        modes8 = tail[:n8].reshape(2 * bh, 2 * bw).astype(np.uint8)
+        cmodes8 = tail[n8:2 * n8].reshape(2 * bh, 2 * bw).astype(np.uint8)
+        cbf8 = tail[2 * n8:5 * n8].reshape(3, 2 * bh, 2 * bw) \
+            .astype(np.uint8)
+        depth = tail[5 * n8:5 * n8 + bh * bw].reshape(bh, bw)
+        pend["dist"] = float(tail[5 * n8 + bh * bw])
+        sao_tail = tail[5 * n8 + bh * bw + 1:]
+
+        def rep2(m):
+            return np.repeat(np.repeat(m, 2, 0), 2, 1)
+
+        def rep4(m):
+            return np.repeat(np.repeat(m, 4, 0), 4, 1)
+
+        def quartets(a, s):
+            return a[:a.shape[0] // s * s, :a.shape[1] // s * s] \
+                .reshape(a.shape[0] // s, s, a.shape[1] // s, s)
+
+        # TU-tree relabel: same-mode quartets fold into the parent CU with
+        # a split transform tree (identical reconstruction, fewer bits)
+        tr16 = np.zeros((bh, bw), np.uint8)
+        fold_ok = cfg.max_intra_tr_depth >= 1
+        m8q = quartets(modes8, 2)
+        c8q = quartets(cmodes8, 2)
+        same8 = (fold_ok
+                 & (m8q == m8q[:, :1, :, :1]).all((1, 3))
+                 & (c8q == c8q[:, :1, :, :1]).all((1, 3))
+                 & (depth == 3))
+        depth = np.where(same8, 2, depth)
+        tr16 = np.where(same8, 1, tr16).astype(np.uint8)
+        d16q = quartets(depth, 2)
+        t16q = quartets(tr16, 2)
+        m16q = quartets(modes8, 4)
+        c16q = quartets(cmodes8, 4)
+        same16 = (fold_ok
+                  & (d16q == 2).all((1, 3)) & (t16q == 0).all((1, 3))
+                  & (m16q == m16q[:, :1, :, :1]).all((1, 3))
+                  & (c16q == c16q[:, :1, :, :1]).all((1, 3)))
+        if cfg.code_true_size:
+            j32 = np.arange(same16.shape[1])
+            i32 = np.arange(same16.shape[0])
+            inside32 = ((32 * (j32 + 1) <= cfg.coded_width)[None, :]
+                        & (32 * (i32 + 1) <= cfg.coded_height)[:, None])
+            same16 = same16 & inside32
+        m32 = np.zeros((bh, bw), bool)
+        m32[:bh // 2 * 2, :bw // 2 * 2] = \
+            np.repeat(np.repeat(same16, 2, 0), 2, 1)
+        depth = np.where(m32, 1, depth)
+        tr16 = np.where(m32, 1, tr16).astype(np.uint8)
+        # 64x64 CUs: four same-mode 32-CUs fold into a depth-0 CU
+        d32q = quartets(depth, 4)
+        t32q = quartets(tr16, 4)
+        m32q = quartets(modes8, 8)
+        c32q = quartets(cmodes8, 8)
+        same32 = ((d32q == 1).all((1, 3)) & (t32q == 0).all((1, 3))
+                  & (m32q == m32q[:, :1, :, :1]).all((1, 3))
+                  & (c32q == c32q[:, :1, :, :1]).all((1, 3)))
+        m64 = np.zeros((bh, bw), bool)
+        m64[:bh // 4 * 4, :bw // 4 * 4] = \
+            np.repeat(np.repeat(same32, 4, 0), 4, 1)
+        depth = np.where(m64, 0, depth)
+        tr16 = np.where(m64, 0, tr16).astype(np.uint8)
+        rec = binding.FrameRecord(
+            width=w, height=h, slice_type=2, slice_qp=pend["qp"],
+            poc=pend["gop_poc"], is_idr=True,
+            cu_depth=rep4(np.clip(depth, 0, 3)).astype(np.uint8),
+            tr_depth=rep4(tr16), intra_luma_mode=rep2(modes8),
+            intra_chroma_mode=rep2(cmodes8),
+            cbf_y=rep2(cbf8[0]), cbf_cb=rep2(cbf8[1]),
+            cbf_cr=rep2(cbf8[2]),
+            coeff_y=cy, coeff_cb=cb, coeff_cr=cr,
+            pred_mode=np.ones((h4, w4), np.uint8))
+        if cfg.sao:
+            rec = self._apply_sao_fields(rec, sao_tail, h, w)
+        return rec
+
+    def _p_record(self, packed, pend, cfg) -> binding.FrameRecord:
+        h, w = pend["padded"]
+        bh, bw = h // 16, w // 16
+        nb = bh * bw
+        mv = packed[:nb * 2].reshape(bh, bw, 2)
+        o = nb * 2
+        ref_idx = packed[o:o + nb].reshape(bh, bw).astype(np.uint8)
+        cbf = packed[o + nb:o + 4 * nb].reshape(3, bh, bw).astype(np.uint8)
+        is_intra = packed[o + 4 * nb:o + 5 * nb].reshape(bh, bw) \
+            .astype(np.uint8)
+        imodes = packed[o + 5 * nb:o + 6 * nb].reshape(bh, bw) \
+            .astype(np.uint8)
+        cu_depth = packed[o + 6 * nb:o + 7 * nb].reshape(bh, bw) \
+            .astype(np.uint8)
+        tr_depth = packed[o + 7 * nb:o + 8 * nb].reshape(bh, bw) \
+            .astype(np.uint8)
+        mvd8p = packed[o + 8 * nb:o + 12 * nb].view(np.uint16) \
+            .reshape(2 * bh, 2 * bw)
+        mvd8 = np.stack([(mvd8p & 0xFF).astype(np.uint8).view(np.int8),
+                         (mvd8p >> 8).astype(np.uint8).view(np.int8)],
+                        -1).astype(np.int16)
+        cbf8_blk = packed[o + 12 * nb:o + 13 * nb].reshape(bh, bw)
+        cbf8 = np.zeros((2 * bh, 2 * bw), np.uint8)
+        for q, (qy, qx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+            cbf8[qy::2, qx::2] = (cbf8_blk >> (3 * q)) & 7
+        pend["intra_frac"] = float(packed[o + 13 * nb]) / nb
+        pend["dist"] = float(packed[o + 13 * nb + 1])
+        cap_ys, cap_cs, esc_ys, esc_cs = inter_frame.p_caps_small(nb)
+        off = o + 13 * nb + 2
+        sz_ys = packing.compact_i8_size(cap_ys, 16, esc_ys)
+        sz_cs = packing.compact_i8_size(cap_cs, 8, esc_cs)
+        _, blk_y = packing.unpack_blocks_i8(packed[off:off + sz_ys],
+                                            cap_ys, 16, nb, esc_ys)
+        off += sz_ys
+        _, blk_b = packing.unpack_blocks_i8(packed[off:off + sz_cs],
+                                            cap_cs, 8, nb, esc_cs)
+        off += sz_cs
+        _, blk_r = packing.unpack_blocks_i8(packed[off:off + sz_cs],
+                                            cap_cs, 8, nb, esc_cs)
+        off += sz_cs
+        sao_tail = packed[off:]
+        out = pend["out"]
+        if blk_y is None or blk_b is None or blk_r is None:
+            # small-tier overflow: one pull of the chunk's full tier,
+            # cached on the shared out dict
+            cap_y, cap_c, esc_y, esc_c = inter_frame.p_caps(nb)
+            if "_pf_host" not in out:
+                out["_pf_host"] = self._host(out["packed_full"])
+            pf = out["_pf_host"][pend["k"]]
+            sz_y = packing.compact_i8_size(cap_y, 16, esc_y)
+            sz_c = packing.compact_i8_size(cap_c, 8, esc_c)
+            if blk_y is None:
+                _, blk_y = packing.unpack_blocks_i8(pf[:sz_y], cap_y, 16, nb,
+                                                    esc_y)
+            if blk_b is None:
+                _, blk_b = packing.unpack_blocks_i8(
+                    pf[sz_y:sz_y + sz_c], cap_c, 8, nb, esc_c)
+            if blk_r is None:
+                _, blk_r = packing.unpack_blocks_i8(
+                    pf[sz_y + sz_c:sz_y + 2 * sz_c], cap_c, 8, nb, esc_c)
+
+        def plane(blocks, hh, ww, b):
+            return np.ascontiguousarray(
+                blocks.reshape(hh // b, ww // b, b, b)
+                .transpose(0, 2, 1, 3).reshape(hh, ww))
+
+        def raw(name):
+            return self._host(out[name][pend["k"]])
+
+        cy = plane(blk_y, h, w, 16) if blk_y is not None else raw("coeff_y")
+        cb = plane(blk_b, h // 2, w // 2, 8) if blk_b is not None \
+            else raw("coeff_cb")
+        cr = plane(blk_r, h // 2, w // 2, 8) if blk_r is not None \
+            else raw("coeff_cr")
+
+        def rep(m):
+            return np.repeat(np.repeat(m, 4, 0), 4, 1)
+
+        def rep2(m):
+            return np.repeat(np.repeat(m, 2, 0), 2, 1)
+
+        imode4 = rep(imodes)
+        mv8 = rep2(mv).astype(np.int16) + mvd8
+        mv4 = rep2(mv8)
+        split4 = rep(cu_depth == 3)
+        cbf_y4 = np.where(split4, rep2(cbf8 & 1), rep(cbf[0]))
+        cbf_cb4 = np.where(split4, rep2((cbf8 >> 1) & 1), rep(cbf[1]))
+        cbf_cr4 = np.where(split4, rep2((cbf8 >> 2) & 1), rep(cbf[2]))
+        rec = binding.FrameRecord(
+            width=w, height=h, slice_type=1,
+            slice_qp=int(pend["qps"][pend["k"]]),
+            poc=pend["gop_poc"], is_idr=False, num_merge_cands=2,
+            cu_depth=rep(cu_depth), tr_depth=rep(tr_depth),
+            pred_mode=rep(is_intra),
+            intra_luma_mode=imode4, intra_chroma_mode=imode4,
+            mv_x=np.ascontiguousarray(mv4[..., 1]),
+            mv_y=np.ascontiguousarray(mv4[..., 0]),
+            cbf_y=np.ascontiguousarray(cbf_y4.astype(np.uint8)),
+            cbf_cb=np.ascontiguousarray(cbf_cb4.astype(np.uint8)),
+            cbf_cr=np.ascontiguousarray(cbf_cr4.astype(np.uint8)),
+            coeff_y=cy, coeff_cb=cb, coeff_cr=cr,
+            ref_idx=rep(ref_idx),
+            num_ref_l0=max(1, min(cfg.num_ref_frames, pend["gop_poc"])))
+        if cfg.sao:
+            rec = self._apply_sao_fields(rec, sao_tail, h, w)
+        return rec
+
+
+def _flatten_ckpt(state: dict) -> dict:
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            for kk, vv in v.items():
+                out[f"{k}.{kk}"] = vv
+        else:
+            out[k] = v
+    return out
+
+
+def _psnr(ref: np.ndarray, rec: np.ndarray) -> float:
+    mse = np.mean((np.asarray(ref, np.float64)
+                   - np.asarray(rec, np.float64)) ** 2)
+    if mse == 0:
+        return 99.0
+    return 10.0 * np.log10(255.0 * 255.0 / mse)

@@ -1,0 +1,157 @@
+"""Where the time of the port's main path goes on one CUDA device.
+
+    python -m homerhevc_torch.profile_main
+
+Encodes 1280x720 IPPP at QP32, rd=ULTRAFAST, frames_per_launch=4 (the
+main path of chip_smoke.py) from seeded synthetic video: one warm-up
+encode, then a timed encode in two windows: the I frame (wall time only:
+its wavefront launches millions of operations, more than the profiler's
+post-processing can digest in a run) and the P frames through
+encode_async/flush under torch.profiler.  Prints one JSON line per
+window: its wall time and, for the P window, the share of it in which
+the device ran work, the device operations launched per frame, the host
+and device time of each encoder stage (the "p.*" record_function ranges)
+and the kernels with the most device time.  A last pass over one I frame
+and one P chunk counts the host<->device synchronisations by source line
+(torch.cuda sync debug mode).  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import os
+import subprocess
+import time
+import warnings
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from homerhevc_torch.api import Encoder
+from homerhevc_torch.config import EncoderConfig, RDMode
+from homerhevc_torch.utils.synthetic import synthetic_video
+
+
+def _dev_attr(ev, name: str) -> float:
+    """Device time attribute across torch versions (cuda_* before 2.4)."""
+    if hasattr(ev, name):
+        return float(getattr(ev, name))
+    return float(getattr(ev, name.replace("device", "cuda")))
+
+
+def _is_stage(name: str) -> bool:
+    return name[:2] in ("i.", "p.")
+
+
+def _busy_us(events) -> float:
+    """Length of the union of the device operations' time ranges."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def _sync_sites(fn) -> dict:
+    """{file:line: count} of the synchronising CUDA operations fn makes
+    (all threads), most frequent first."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return dict(sites.most_common(40))
+
+
+def _wall(name: str, fn) -> dict:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return dict(window=name, frames=1,
+                wall_ms=(time.perf_counter() - t0) * 1e3)
+
+
+def _window(name: str, fn, n_frames: int):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    rows = prof.key_averages()
+    # a stage range appears as a host row (its wall time on the host and
+    # the device time of the kernels launched inside it) and, on the
+    # card, as a device-timeline annotation (first to last kernel)
+    stages = collections.defaultdict(dict)
+    for r in rows:
+        if not _is_stage(r.key):
+            continue
+        dev_ms = _dev_attr(r, "device_time_total") / 1e3
+        if r.cpu_time_total > 0:
+            stages[r.key].update(host_ms=r.cpu_time_total / 1e3,
+                                 kernel_ms=dev_ms, calls=r.count)
+        else:
+            stages[r.key]["device_span_ms"] = dev_ms
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not _is_stage(e.name)]
+    kern = sorted(((_dev_attr(r, "self_device_time_total"), r.key, r.count)
+                   for r in rows if not _is_stage(r.key)
+                   and _dev_attr(r, "self_device_time_total") > 0),
+                  reverse=True)[:12]
+    return dict(window=name, frames=n_frames, wall_ms=wall_s * 1e3,
+                stages=dict(stages),
+                device_busy_share=_busy_us(dev) / (wall_s * 1e6),
+                device_ops=len(dev) / n_frames,
+                top_kernels=[dict(name=k[:80], device_ms=t / 1e3, count=c)
+                             for t, k, c in kern])
+
+
+P_FRAMES = 4
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_main: CUDA is not available")
+    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
+                        rd_mode=RDMode.RD_ULTRAFAST)
+    frames = synthetic_video(1 + P_FRAMES, cfg.height, cfg.width)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+    def emit(res):
+        print(json.dumps(dict(res, card=card)), flush=True)
+
+    warm = Encoder(cfg)
+    for f in frames[:5]:
+        warm.encode_async(*f)
+    warm.flush()
+
+    enc = Encoder(cfg)
+    out = []
+    emit(_wall("i_frame", lambda: out.extend(enc.encode_async(*frames[0]))))
+
+    def p_frames():
+        for f in frames[1:]:
+            out.extend(enc.encode_async(*f))
+        out.extend(enc.flush())
+    emit(_window("p_frames", p_frames, P_FRAMES))
+    assert len(out) == 1 + P_FRAMES, len(out)
+    enc = Encoder(cfg)
+    syncs = _sync_sites(lambda: [enc.encode_async(*f) for f in frames]
+                        + [enc.flush()])
+    emit(dict(window="sync_sites", frames=len(frames), sites=syncs))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,126 @@
+"""The port's kernel wrappers on the CPU (their plain versions) against
+the JAX package: the window gathers against me._gather_windows /
+me._gather_windows_ref and the Pallas kernels in interpret mode, the slab
+search against me.slab_search_jnp and slab_search_pallas.  Exact."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from homerhevc_torch.ops import kernels
+from homerhevc_tpu.ops import me as jme
+from homerhevc_tpu.ops import pallas_kernels
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.as_tensor(np.ascontiguousarray(a, np.int32))
+
+
+def test_gather_windows_plain_matches_jax():
+    for size, n in [(23, 70), (11, 129), (20, 65), (25, 33)]:
+        rng = np.random.default_rng(size)
+        hp, wp = 96, 200
+        ref = rng.integers(0, 1020, (hp, wp)).astype(np.int32)
+        by = rng.integers(0, hp - size, n).astype(np.int32)
+        bx = rng.integers(0, wp - size, n).astype(np.int32)
+        # origins past the far edge clamp back into the plane
+        by[:2] = (hp - 1, hp + 40)
+        bx[1:3] = (wp + 9, wp - 1)
+        got = kernels.gather_windows(_t(ref), _t(by), _t(bx), size).numpy()
+        want = np.asarray(jax.jit(lambda r, y, x: jme._gather_windows(
+            r, y, x, size))(ref, by, bx))
+        np.testing.assert_array_equal(got, want, err_msg=str((size, n)))
+
+
+# Interpret mode runs the Pallas gathers op by op, and its time is set by
+# the windows per grid step (_GATHER_CHUNK, 64), whatever n is: eight
+# windows a step keep the same kernel body about 8x cheaper here.
+_INTERPRET_CHUNK = 8
+
+
+def test_gather_windows_plain_matches_pallas_clamped(monkeypatch):
+    monkeypatch.setattr(pallas_kernels, "_GATHER_CHUNK", _INTERPRET_CHUNK)
+    rng = np.random.default_rng(1)
+    hp, wp, size, n = 96, 200, 22, 19     # three grid steps, one partial
+    ref = rng.integers(0, 1020, (hp, wp)).astype(np.int32)
+    by = rng.integers(0, hp - size, n).astype(np.int32)
+    bx = rng.integers(0, wp - size, n).astype(np.int32)
+    by[:3] = (-5, hp - 1, hp + 40)        # the TPU kernel's clamp
+    bx[:3] = (wp + 9, -1, wp - 1)
+    got = kernels.gather_windows(_t(ref), _t(by), _t(bx), size).numpy()
+    want = np.asarray(pallas_kernels.gather_windows_pallas(
+        jnp.asarray(ref), jnp.asarray(by), jnp.asarray(bx), size,
+        interpret=True))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_gather_windows_ref_plain_matches_jax(monkeypatch):
+    monkeypatch.setattr(pallas_kernels, "_GATHER_CHUNK", _INTERPRET_CHUNK)
+    rng = np.random.default_rng(2)
+    hp, wp, size, n, r = 64, 160, 11, 33, 2
+    refs = rng.integers(0, 1020, (r, hp, wp)).astype(np.int32)
+    by = rng.integers(0, hp - size, n).astype(np.int32)
+    bx = rng.integers(0, wp - size, n).astype(np.int32)
+    ri = rng.integers(0, r, n).astype(np.int32)
+    got = kernels.gather_windows_ref(_t(refs), _t(ri), _t(by), _t(bx),
+                                     size).numpy()
+    want = np.asarray(jax.jit(lambda p, i, y, x: jme._gather_windows_ref(
+        p, i, y, x, size))(refs, ri, by, bx))
+    np.testing.assert_array_equal(got, want)
+    ri, by, bx = ri[:11], by[:11], bx[:11]
+    ri[:2] = (-1, 5)                      # plane index clamped too
+    by[2], bx[3] = hp + 3, -7
+    got = kernels.gather_windows_ref(_t(refs), _t(ri), _t(by), _t(bx),
+                                     size).numpy()
+    want = np.asarray(pallas_kernels.gather_windows_ref_pallas(
+        jnp.asarray(refs), jnp.asarray(ri), jnp.asarray(by),
+        jnp.asarray(bx), size, interpret=True))
+    np.testing.assert_array_equal(got, want)
+
+
+def _slab_case(seed, h, w, bs, ry, rx):
+    rng = np.random.default_rng(seed)
+    cur = rng.integers(0, 1020, (h, w)).astype(np.int32)
+    slab = rng.integers(0, 1020, (h + 2 * ry, w + 2 * rx)).astype(np.int32)
+    # planted exact matches at two offsets of equal |mv| penalty: the
+    # first in flat order must win
+    blk = cur[4:4 + bs, 8:8 + bs]
+    slab[ry + 3:ry + 3 + bs, rx + 8:rx + 8 + bs] = blk
+    slab[ry + 4:ry + 4 + bs, rx + 7:rx + 7 + bs] = blk
+    return cur, slab
+
+
+def test_slab_search_plain_matches_jnp():
+    for h, w, bs, ry, rx in [(16, 32, 2, 8, 16), (32, 48, 8, 3, 3),
+                             (24, 40, 4, 2, 5)]:
+        cur, slab = _slab_case(h + w, h, w, bs, ry, rx)
+        got = kernels.slab_search(_t(cur), _t(slab), bs, ry, rx).numpy()
+        want = np.asarray(jax.jit(lambda c, s: jme.slab_search_jnp(
+            c, s, bs, ry, rx))(cur, slab))
+        np.testing.assert_array_equal(got, want,
+                                      err_msg=str((h, w, bs, ry, rx)))
+
+
+def test_slab_search_plain_matches_pallas_square():
+    cur, slab = _slab_case(0, 32, 48, 4, 4, 4)
+    got = kernels.slab_search(_t(cur), _t(slab), 4, 4, 4).numpy()
+    want = np.asarray(pallas_kernels.slab_search_pallas(
+        jnp.asarray(cur), jnp.asarray(slab), 4, 4, interpret=True))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_wrappers_reject_bad_inputs():
+    plane = torch.zeros((32, 32), dtype=torch.int32)
+    idx = torch.zeros((4,), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        kernels.gather_windows(plane.float(), idx, idx, 8)
+    with pytest.raises(ValueError):
+        kernels.gather_windows(plane.T, idx, idx, 8)
+    with pytest.raises(ValueError):
+        kernels.slab_search(plane, plane, 4, 2, 2)
+    counts = kernels.launch_counts()
+    kernels.gather_windows(plane, idx, idx, 8)     # CPU: plain, no launch
+    assert kernels.launch_counts() == counts
