@@ -6,15 +6,20 @@ Phases (any failure raises and exits non-zero):
   1. build the CUDA kernels (nvcc, sm_90a) and the native entropy library
      from the sources in this checkout;
   2. hold every kernel against its plain PyTorch version on the card,
-     bit for bit, at the main path's shapes with clamped origins, a
-     clamped plane index and planted slab-search ties;
+     bit for bit, at the main path's shapes and around them: clamped
+     origins and plane index, outputs that are not a multiple of 4 words
+     or of a CTA's tile, window sizes and block sizes that take the
+     kernels' run-time instantiations, planted slab-search ties (the
+     far-corner tie must resolve to flat index 0), values at the top of
+     their real range;
   3. encode 176x144, 1 I + 4 P frames, on cuda and on cpu: the Annex-B
      bytes and the reconstructions must be identical;
   4. the main path: 1280x720 IPPP at QP32, rd=ULTRAFAST, 1 I + 8 P frames
      through Encoder.encode_async/flush; every kernel must have been
      launched; prints fps, the card's name and power limit, and per
-     kernel its time, error and bound on the inputs one P frame of the
-     warm-up encode gave it.
+     kernel, on the inputs one P frame of the warm-up encode gave it,
+     its error, its time (median and spread of 5 runs of 50), the plain
+     version's and a PyTorch call's time, and its bound.
 The last line of stdout is {"ok": true, "device": {...}}.
 """
 import json
@@ -74,18 +79,34 @@ def same(got: torch.Tensor, want: torch.Tensor, what: str) -> int:
     return err
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call on the card (CUDA events, warmed up)."""
+SLEEP_CYCLES_PER_S = 2.0e9     # >= the H100's top SM clock (1.98 GHz)
+
+
+def time_ms(fn, reps: int, repeats: int = 5) -> tuple:
+    """Device milliseconds per call (CUDA events): the median and the
+    (min, max) of `repeats` runs of `reps` calls each.  Each run starts
+    behind a spin kernel twice as long as the host takes to queue the
+    run, so the card finds the calls queued back to back and the time is
+    the device's, not the host's queueing rate."""
     fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(repeats):
+        torch.cuda._sleep(int(min(2 * host_s, 0.5) * SLEEP_CYCLES_PER_S))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        runs.append(a.elapsed_time(b) / reps)
+    return float(np.median(runs)), (min(runs), max(runs))
 
 
 # ---------------------------------------------------------------- phase 1
@@ -118,14 +139,29 @@ def gather_args(rng, n, size, shape):
     hp, wp = shape[-2:]
     by = rng.integers(-8, hp - size + 8, n)
     bx = rng.integers(-8, wp - size + 8, n)
-    by[:3] = (-5, hp - 1, hp + 40)              # clamped origins
-    bx[:3] = (wp + 9, -1, wp - 1)
+    k = min(n, 3)                               # clamped origins
+    by[:k] = (-5, hp - 1, hp + 40)[:k]
+    bx[:k] = (wp + 9, -1, wp - 1)[:k]
     return plane, i32(by), i32(bx)
 
 
-def slab_args(rng, h, w, bs, ry, rx):
-    cur = rng.integers(0, 1020, (h, w))
-    slab = rng.integers(0, 1020, (h + 2 * ry, w + 2 * rx))
+def plant_far_corners(cur, slab, b0, b1, bs, ry, rx):
+    """Exact matches of the cur block at (b0, b1) at flat index 0 and at
+    the last, (2ry, 2rx): equal |mv| penalties, so index 0 must win.
+    Where bs > 2r the two planted regions overlap, and the block's
+    bottom-right corner is made equal to its top-left one."""
+    oy, ox = bs - 2 * ry, bs - 2 * rx
+    if oy > 0 and ox > 0:
+        cur[b0 + 2 * ry:b0 + bs, b1 + 2 * rx:b1 + bs] = \
+            cur[b0:b0 + oy, b1:b1 + ox]
+    blk = cur[b0:b0 + bs, b1:b1 + bs].copy()
+    slab[b0:b0 + bs, b1:b1 + bs] = blk
+    slab[b0 + 2 * ry:b0 + 2 * ry + bs, b1 + 2 * rx:b1 + 2 * rx + bs] = blk
+
+
+def slab_args(rng, h, w, bs, ry, rx, lo=0, hi=1020, far_corners=False):
+    cur = rng.integers(lo, hi, (h, w))
+    slab = rng.integers(lo, hi, (h + 2 * ry, w + 2 * rx))
     # planted exact matches at two offsets of equal |mv| cost
     b0, b1 = min(4 * bs, h - bs), min(4 * bs, w - bs)
     blk = cur[b0:b0 + bs, b1:b1 + bs]
@@ -134,31 +170,77 @@ def slab_args(rng, h, w, bs, ry, rx):
     # a block whose every offset ties (flat content)
     cur[:bs, :bs] = 7
     slab[:2 * ry + bs, :2 * rx + bs] = 7
+    if far_corners:
+        plant_far_corners(cur, slab, (h // bs // 2) * bs,
+                          (w // bs // 2) * bs, bs, ry, rx)
     return i32(cur), i32(slab)
 
 
+def slab_cases(calls):
+    """Phase 2's slab-search cases: (h, w, bs, ry, rx, lo, hi, far)."""
+    cases = []
+    for (h, w, bs, ry, rx) in calls:
+        # the main path's shape and value range (hi exclusive)
+        cases.append((h, w, bs, ry, rx, 0, 1020, False))
+        # one more row and column of output blocks than the main path
+        # (not a multiple of a CTA's tile), the far-corner tie, and the
+        # values' real top: sums of 64 pixels at the eighth-res call,
+        # of 4 at the half-res one
+        top = 16321 if bs == 2 else 1021
+        cases.append((h + bs, w + bs, bs, ry, rx, 0, top, True))
+        cases.append((h + bs, w + bs, bs, ry, rx, top - 1021, top, True))
+    # block sizes of the run-time instantiation and the 4x4 one, a
+    # radius whose tile needs shared memory past 48 KB, and one whose
+    # 2 x 4 tile does not fit at all (one block per CTA)
+    cases += [(30, 45, 3, 2, 5, 0, 1020, True),
+              (24, 40, 4, 2, 5, 0, 1020, True),
+              (64, 64, 8, 90, 90, 0, 1020, True),
+              (16, 16, 8, 108, 108, 0, 1020, True)]
+    return cases
+
+
+def gather_cases(calls):
+    """Phase 2's gather cases: (name, n, size, plane shape)."""
+    cases = []
+    for name in ("gather_windows", "gather_windows_ref"):
+        for n, size, shape in calls[name]:
+            # one window more than the main path gives
+            cases.append((name, n + 1, size, shape))
+        shape = calls[name][0][2]
+        # n * size^2 not a multiple of 4, n below one CTA's stride,
+        # sizes outside the templated list (run-time size)
+        cases += [(name, 4097, 23, shape), (name, 3, 25, shape),
+                  (name, 1001, 13, shape), (name, 5, 1, shape),
+                  (name, 333, 2, shape)]
+    return cases
+
+
 def phase_compare(cfg):
-    """Edge cases at the main path's shapes: one window more than the
-    main path gives (not a multiple of a CTA), clamped origins and plane
-    index, planted ties."""
+    """Edge cases at the main path's shapes and around them: clamped
+    origins and plane index, planted ties, ragged tiles and tails,
+    sizes and radii off the main path."""
     rng = np.random.default_rng(0)
     calls = main_path_calls(cfg)
-    for n, size, shape in calls["gather_windows"]:
-        plane, by, bx = gather_args(rng, n + 1, size, shape)
-        same(kernels.gather_windows(plane, by, bx, size),
-             kernels.gather_windows_plain(plane[None], None, by, bx, size),
-             f"gather_windows size={size}")
-    for n, size, shape in calls["gather_windows_ref"]:
-        planes, by, bx = gather_args(rng, n + 1, size, shape)
-        ri = i32(rng.integers(-1, shape[0] + 1, n + 1))
-        same(kernels.gather_windows_ref(planes, ri, by, bx, size),
-             kernels.gather_windows_plain(planes, ri, by, bx, size),
-             "gather_windows_ref")
-    for (h, w, bs, ry, rx) in calls["slab_search"]:
-        cur, slab = slab_args(rng, h, w, bs, ry, rx)
-        same(kernels.slab_search(cur, slab, bs, ry, rx),
-             kernels.slab_search_plain(cur, slab, bs, ry, rx),
-             f"slab_search {h}x{w} bs={bs}")
+    for name, n, size, shape in gather_cases(calls):
+        plane, by, bx = gather_args(rng, n, size, shape)
+        if name == "gather_windows":
+            got = kernels.gather_windows(plane, by, bx, size)
+            want = kernels.gather_windows_plain(plane[None], None, by, bx,
+                                                size)
+        else:
+            ri = i32(rng.integers(-1, shape[0] + 1, n))
+            got = kernels.gather_windows_ref(plane, ri, by, bx, size)
+            want = kernels.gather_windows_plain(plane, ri, by, bx, size)
+        same(got, want, f"{name} n={n} size={size}")
+    for (h, w, bs, ry, rx, lo, hi, far) in slab_cases(calls["slab_search"]):
+        cur, slab = slab_args(rng, h, w, bs, ry, rx, lo, hi, far)
+        got = kernels.slab_search(cur, slab, bs, ry, rx)
+        same(got, kernels.slab_search_plain(cur, slab, bs, ry, rx),
+             f"slab_search {h}x{w} bs={bs} r=({ry},{rx}) values {lo}..{hi}")
+        if far:
+            b0, b1 = h // bs // 2, w // bs // 2
+            assert int(got[b0, b1]) == 0, \
+                f"far-corner tie: got index {int(got[b0, b1])}"
     # argmin's first-minimum rule on the card (the port relies on it)
     x = torch.tensor([[3, 1, 1, 2], [0, 0, 0, 0]], device=DEV)
     assert torch.argmin(x, 1).tolist() == [1, 0], "argmin tie rule"
@@ -290,19 +372,38 @@ def gather_read_bytes(shape, ri, by, bx, size) -> int:
     return 32 * int((np.cumsum(edge[:n_sec]) > 0).sum())
 
 
+def unfold_gather(planes, ri, by, bx, size):
+    """One PyTorch call computing a window gather: advanced indexing
+    into an unfold view of the planes.  Clamping the indices happens
+    here, outside the returned (timed) function."""
+    r, hp, wp = planes.shape
+    byc = by.clamp(0, hp - size).long()
+    bxc = bx.clamp(0, wp - size).long()
+    if ri is None:
+        view = planes[0].unfold(0, size, 1).unfold(1, size, 1)
+        return lambda: view[byc, bxc]
+    ric = ri.clamp(0, r - 1).long()
+    view = planes.unfold(1, size, 1).unfold(2, size, 1)
+    return lambda: view[ric, byc, bxc]
+
+
 def kernel_report(counts, per_frame):
     """Per kernel, on the inputs one P frame gave it: the largest
     difference from the plain version, the time of the frame's calls
-    (kernel and plain version) and the least time the card could take."""
+    (kernel, plain version and, for the gathers, one PyTorch call that
+    computes the same function; median and spread of 5 runs) and the
+    least time the card could take."""
     rows = []
     for name, calls in per_frame.items():
-        ms = plain_ms = bound = by_ops = 0.0
+        fns, plains, libs = [], [], []
+        bound = by_ops = 0.0
         err = 0
         for args in calls:
             f = (lambda a=args, k=name: getattr(kernels, k)(*a))
             if name == "slab_search":
                 cur, slab, bs, ry, rx = args
                 g = (lambda a=args: kernels.slab_search_plain(*a))
+                lib = None      # no one PyTorch call does block matching
                 h, w = cur.shape
                 nbytes = 4 * (cur.numel() + slab.numel()
                               + (h // bs) * (w // bs))
@@ -311,6 +412,7 @@ def kernel_report(counts, per_frame):
                 plane, by, bx, size = args
                 g = (lambda p=plane, a=by, b=bx, s=size:
                      kernels.gather_windows_plain(p[None], None, a, b, s))
+                lib = unfold_gather(plane[None], None, by, bx, size)
                 n = by.numel()
                 nbytes = (gather_read_bytes((1,) + tuple(plane.shape), None,
                                             by, bx, size)
@@ -319,24 +421,35 @@ def kernel_report(counts, per_frame):
             else:
                 planes, ri, by, bx, size = args
                 g = (lambda a=args: kernels.gather_windows_plain(*a))
+                lib = unfold_gather(planes, ri, by, bx, size)
                 n = by.numel()
                 nbytes = (gather_read_bytes(tuple(planes.shape), ri, by, bx,
                                             size)
                           + 4 * (3 * n + n * size * size))
                 ops = 0.0
             err = max(err, same(f(), g(), f"{name} on main-path inputs"))
-            ms += time_ms(f, 50)
-            plain_ms += time_ms(g, 5)
+            if lib is not None:
+                same(lib(), g(), f"{name}: unfold + index")
+                libs.append(lib)
+            fns.append(f)
+            plains.append(g)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / INT32_OPS_PER_S * 1e3
             bound += max(t_bytes, t_ops)
             by_ops += t_ops - t_bytes
+
+        def frame(fs):
+            return lambda: [fn() for fn in fs]
+        ms, spread = time_ms(frame(fns), 50)
+        plain_ms, _ = time_ms(frame(plains), 5)
+        library_ms = time_ms(frame(libs), 50)[0] if libs else None
         rows.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=counts[name],
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by="operations" if by_ops > 0 else "bytes",
-            library_ms=None))
+            max_abs_err=err, ms=ms, ms_spread=list(spread),
+            plain_ms=plain_ms, bound_ms=bound,
+            bound_by="operations" if by_ops > 0 else "bytes",
+            library_ms=library_ms))
     return rows
 
 
@@ -351,9 +464,13 @@ def main():
     counts, per_frame = phase_main(cfg)
     rows = kernel_report(counts, per_frame)
     for r in rows:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/P-frame "
-            f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} "
-            f"{r['bound_by']}), {r['launches']} launches")
+            f"(spread {r['ms_spread'][0]:.4f}-{r['ms_spread'][1]:.4f}, "
+            f"plain {r['plain_ms']:.4f}, library {lib}, "
+            f"bound {r['bound_ms']:.5f} {r['bound_by']}), "
+            f"{r['launches']} launches")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

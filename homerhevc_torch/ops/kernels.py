@@ -192,8 +192,14 @@ def gather_windows(plane: torch.Tensor, by: torch.Tensor,
     origins (by, bx) [n], clamped to the plane.
 
     Replaces gather_windows_pallas (homerhevc_tpu/ops/pallas_kernels.py).
-    Bound by device memory (one read and one write per element); the
-    kernel keeps both coalesced by walking each window row-major."""
+    Bound by device memory (one read and one write per element), but at
+    the encoder's shapes a call moves only a few MB, so scheduling and
+    index arithmetic weigh as much as the bytes.  The kernel treats the
+    output as one flat stream: each thread writes 4 consecutive words
+    with one 16-byte store, finds window, row and column by division by
+    compile-time constants (window sizes 11, 20, 22, 23, 25; any other
+    size through a run-time-size instantiation of the same kernel), and
+    a few CTAs per SM stride over the stream."""
     _check(plane, "plane", 2)
     _check(by, "by", 1)
     _check(bx, "bx", 1)
@@ -212,7 +218,8 @@ def gather_windows_ref(planes: torch.Tensor, ri: torch.Tensor,
     planes [R, Hp, Wp] (clamped to [0, R-1]).
 
     Replaces gather_windows_ref_pallas with the same CUDA kernel as
-    gather_windows, and the same memory bound."""
+    gather_windows (flat output stream, 16-byte stores, the plane index
+    read beside the origins), and the same memory bound."""
     _check(planes, "planes", 3)
     for t, w in ((ri, "ri"), (by, "by"), (bx, "bx")):
         _check(t, w, 1)
@@ -254,9 +261,18 @@ def slab_search(cur: torch.Tensor, slab: torch.Tensor, bs: int, ry: int,
 
     Replaces slab_search_pallas, whose work the reference runs as
     me.slab_search_jnp.  At the encoder's shapes a call is a few million
-    absolute differences, so launch latency bounds it; the kernel stages
-    each tile with its halo in shared memory once and keeps the running
-    minimum in registers."""
+    absolute differences, about a microsecond of the card's integer
+    rate, so what bounds it is how many differences run side by side and
+    the fixed cost of a launch.  The kernel spreads (output block,
+    offset) pairs over the card: a CTA stages a tile of 2 x 4 output
+    blocks with its slab halo in shared memory once, one warp per block,
+    and the warp's lanes split the block's offsets, reading
+    conflict-free (the slab tile's row pitch is padded to 2rx+1 mod 32)
+    against the block's pixels held in registers (block sizes 2, 4 and
+    8; any other size reads them from shared memory).  The warp reduces
+    the 64-bit keys (cost << 32) | flat index with min, so equal costs
+    resolve to the lower flat index, as argmin's first-minimum rule
+    does."""
     _check(cur, "cur", 2)
     _check(slab, "slab", 2)
     h, w = cur.shape

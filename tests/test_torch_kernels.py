@@ -81,27 +81,46 @@ def test_gather_windows_ref_plain_matches_jax(monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
-def _slab_case(seed, h, w, bs, ry, rx):
+def _slab_case(seed, h, w, bs, ry, rx, hi=1020, far_corners=False):
     rng = np.random.default_rng(seed)
-    cur = rng.integers(0, 1020, (h, w)).astype(np.int32)
-    slab = rng.integers(0, 1020, (h + 2 * ry, w + 2 * rx)).astype(np.int32)
+    cur = rng.integers(0, hi, (h, w)).astype(np.int32)
+    slab = rng.integers(0, hi, (h + 2 * ry, w + 2 * rx)).astype(np.int32)
     # planted exact matches at two offsets of equal |mv| penalty: the
     # first in flat order must win
     blk = cur[4:4 + bs, 8:8 + bs]
     slab[ry + 3:ry + 3 + bs, rx + 8:rx + 8 + bs] = blk
     slab[ry + 4:ry + 4 + bs, rx + 7:rx + 7 + bs] = blk
+    if far_corners:
+        # exact matches at flat index 0 and at the last, (2ry, 2rx), of
+        # the block at (b0, b1); where bs > 2r the planted regions
+        # overlap, so the block's two corners are made to agree there
+        b0, b1 = (h // bs // 2) * bs, (w // bs // 2) * bs
+        oy, ox = bs - 2 * ry, bs - 2 * rx
+        if oy > 0 and ox > 0:
+            cur[b0 + 2 * ry:b0 + bs, b1 + 2 * rx:b1 + bs] = \
+                cur[b0:b0 + oy, b1:b1 + ox]
+        blk = cur[b0:b0 + bs, b1:b1 + bs].copy()
+        slab[b0:b0 + bs, b1:b1 + bs] = blk
+        slab[b0 + 2 * ry:b0 + 2 * ry + bs, b1 + 2 * rx:b1 + 2 * rx + bs] = blk
     return cur, slab
 
 
 def test_slab_search_plain_matches_jnp():
-    for h, w, bs, ry, rx in [(16, 32, 2, 8, 16), (32, 48, 8, 3, 3),
-                             (24, 40, 4, 2, 5)]:
-        cur, slab = _slab_case(h + w, h, w, bs, ry, rx)
+    # the last two are the encoder's two calls at 720p, the eighth-res
+    # one with values up to 16,320 (sums of 64 pixels), each with the
+    # far-corner tie planted
+    for h, w, bs, ry, rx, hi, far in [
+            (16, 32, 2, 8, 16, 1020, False), (32, 48, 8, 3, 3, 1020, False),
+            (24, 40, 4, 2, 5, 1020, False), (96, 160, 2, 8, 16, 16321, True),
+            (384, 640, 8, 3, 3, 1020, True)]:
+        cur, slab = _slab_case(h + w, h, w, bs, ry, rx, hi, far)
         got = kernels.slab_search(_t(cur), _t(slab), bs, ry, rx).numpy()
         want = np.asarray(jax.jit(lambda c, s: jme.slab_search_jnp(
             c, s, bs, ry, rx))(cur, slab))
         np.testing.assert_array_equal(got, want,
                                       err_msg=str((h, w, bs, ry, rx)))
+        if far:
+            assert got[h // bs // 2, w // bs // 2] == 0
 
 
 def test_slab_search_plain_matches_pallas_square():
