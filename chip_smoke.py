@@ -12,14 +12,22 @@ Phases (any failure raises and exits non-zero):
      kernels' run-time instantiations, planted slab-search ties (the
      far-corner tie must resolve to flat index 0), values at the top of
      their real range;
-  3. encode 176x144, 1 I + 4 P frames, on cuda and on cpu: the Annex-B
-     bytes and the reconstructions must be identical;
-  4. the main path: 1280x720 IPPP at QP32, rd=ULTRAFAST, 1 I + 8 P frames
-     through Encoder.encode_async/flush; every kernel must have been
-     launched; prints fps, the card's name and power limit, and per
-     kernel, on the inputs one P frame of the warm-up encode gave it,
-     its error, its time (median and spread of 5 runs of 50), the plain
-     version's and a PyTorch call's time, and its bound.
+  3. encode 176x144 on cuda and on cpu, at rd=ULTRAFAST (1 I + 4 P) and
+     at rd=FAST (six frames with isolated new blocks, divergent motion and
+     a scene cut that restarts the GOP): the Annex-B bytes and the
+     reconstructions must be identical;
+  4. the rd=ULTRAFAST path: 1280x720 IPPP at QP32, 1 I + 4 P frames
+     through Encoder.encode_async/flush: every kernel launched, at the
+     path's shapes;
+  5. the main path, the default configuration: 1280x720 IPPP at QP32,
+     rd=FAST, 1 I + 8 P frames through Encoder.encode_async/flush, on
+     video whose content fires the P frames' intra fallback and 8x8
+     split and the I frame's NxN; every kernel must have been launched
+     at every call site of the path; prints the tools' counts per frame,
+     fps, the card's name and power limit, and per kernel, on the inputs
+     one P frame of the first chunk gave it, its error, its time (median
+     and spread of 5 runs of 50), the plain version's and a PyTorch
+     call's time, and its bound.
 The last line of stdout is {"ok": true, "device": {...}}.
 """
 import json
@@ -127,11 +135,22 @@ def main_path_calls(cfg):
     half = (h // 2 + 2 * 78, w // 2 + 2 * 78)   # coarse refine pad 6+72
     full = (h + 2 * pad, w + 2 * pad)
     chroma = (h // 2 + pad, w // 2 + pad)
-    return dict(
+    calls = dict(
         gather_windows=[(n, 20, half), (2 * n, 22, full), (n, 25, full),
                         (2 * n, 23, full)],
         gather_windows_ref=[(2 * n, 11, (2,) + chroma)],
         slab_search=[(h // 8, w // 8, 2, 8, 16), (h // 2, w // 2, 8, 3, 3)])
+    if cfg.rd_mode == RDMode.RD_FAST:
+        k = min(512, n)                         # fallback and split caps
+        calls["gather_windows"] += (
+            [(2 * n, 23, full)]                 # merge round 2: left/top
+            + [(k, 33, (1 + h + 16, 1 + w + 16))] * 2   # fallback ADI x2
+            + [(4 * k, 14, full), (4 * k, 15, full)]    # split8 refine, MC
+            + [((h // 32) * (w // 32), 39, full),       # quadtree majority
+               ((h // 64) * (w // 64), 71, full)]
+            + [(k, 17, (1 + h // 2 + 8, 1 + w // 2 + 8))] * 4)  # fb chroma
+        calls["gather_windows_ref"].append((8 * k, 7, (2,) + chroma))
+    return calls
 
 
 def gather_args(rng, n, size, shape):
@@ -257,31 +276,48 @@ def encode_all(enc, frames):
     return out
 
 
+def fast_video(n, h, w):
+    """Video whose content fires the rd=FAST tools: isolated new blocks
+    (P intra fallback), divergent 8x8 motion (8x8 inter split), striped
+    quadrants (I-frame NxN and TU split)."""
+    return synthetic_video(n, h, w, plants=64, diverge=128, quads=64)
+
+
 def phase_cpu_parity():
-    cfg = EncoderConfig(width=176, height=144, qp=32, intra_period=100,
-                        rd_mode=RDMode.RD_ULTRAFAST)
-    frames = synthetic_video(5, 144, 176)
-    res = {}
-    for dev in ("cuda", "cpu"):
-        enc = Encoder(cfg, device=dev)
-        out = encode_all(enc, frames)
-        res[dev] = ([f.nalus for f in out],
-                    [r.cpu().numpy() for r in enc._ref])
-    assert len(res["cuda"][0]) == 5
-    assert res["cuda"][0] == res["cpu"][0], "cuda/cpu Annex-B bytes differ"
-    for a, b in zip(res["cuda"][1], res["cpu"][1]):
-        assert np.array_equal(a, b), "cuda/cpu reconstructions differ"
-    log(f"[parity] 176x144 1I+4P: cuda == cpu "
-        f"({sum(len(x) for x in res['cuda'][0])} bytes)")
+    for rd, frames, sync in (
+            (RDMode.RD_ULTRAFAST, synthetic_video(5, 144, 176), False),
+            (RDMode.RD_FAST, synthetic_video(6, 144, 176, plants=8,
+                                             diverge=32, quads=32,
+                                             scene_cut=4), True)):
+        cfg = EncoderConfig(width=176, height=144, qp=32, intra_period=100,
+                            rd_mode=rd)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            enc = Encoder(cfg, device=dev)
+            # rd=FAST through encode(): each frame's scene check lands
+            # before the next frame, so the cut restarts the GOP
+            out = ([enc.encode(*f) for f in frames] if sync
+                   else encode_all(enc, frames))
+            res[dev] = ([f.nalus for f in out], [f._is_idr for f in out],
+                        [r.cpu().numpy() for r in enc._ref])
+        assert len(res["cuda"][0]) == len(frames)
+        assert res["cuda"][0] == res["cpu"][0], \
+            f"{rd.name}: cuda/cpu Annex-B bytes differ"
+        for a, b in zip(res["cuda"][2], res["cpu"][2]):
+            assert np.array_equal(a, b), \
+                f"{rd.name}: cuda/cpu reconstructions differ"
+        if sync:
+            assert res["cuda"][1] == [True, False, False, False, False,
+                                      True], res["cuda"][1]
+        log(f"[parity] 176x144 {rd.name} {len(frames)} frames (IDR at "
+            f"{[i for i, x in enumerate(res['cuda'][1]) if x]}): cuda == "
+            f"cpu ({sum(len(x) for x in res['cuda'][0])} bytes)")
 
 
-# ---------------------------------------------------------------- phase 4
+# ------------------------------------------------------------ phases 4-5
 def psnr(a, b) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
-
-
-WARM_P = 4                               # P frames of the warm-up encode
 
 
 def record_calls(fn):
@@ -307,50 +343,103 @@ def record_calls(fn):
     return calls
 
 
-def phase_main(cfg, n_p=8):
-    """Returns the launch counts of the main path's run and the kernel
-    calls one P frame of the warm-up made."""
-    frames = synthetic_video(1 + n_p, cfg.height, cfg.width)
-    warm = Encoder(cfg)                  # warm-up: allocator, cuBLAS, libs
-    rec = record_calls(lambda: encode_all(warm, frames[:1 + WARM_P]))
-    torch.cuda.synchronize()
-    per_frame = {}
-    for k, v in rec.items():
-        assert v and len(v) % WARM_P == 0, (k, len(v))
-        per_frame[k] = v[:len(v) // WARM_P]
-    # phase 2 checked the edge cases at these shapes
-    shapes = {k: sorted(tuple(a[0].shape) + a[2:]
-                        if k == "slab_search" else
-                        (a[-2].numel(), a[-1], tuple(a[0].shape))
-                        for a in v) for k, v in per_frame.items()}
-    assert shapes == {k: sorted(v) for k, v in main_path_calls(cfg).items()},\
-        shapes
+def tool_counts(rec) -> dict:
+    """CUs of the rd=FAST tools in one FrameRecord (4x4 granules): NxN
+    8x8 CUs of an I frame; intra 16x16 CUs and 8x8-split 16x16 blocks of
+    a P frame."""
+    if rec.is_idr:
+        return dict(nxn=0 if rec.part_size is None
+                    else int(rec.part_size.sum()) // 4)
+    return dict(intra=int(rec.pred_mode.sum()) // 16,
+                split8=int((rec.cu_depth == 3).sum()) // 16)
 
-    enc = Encoder(cfg)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = enc.encode_async(*frames[0])
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for f in frames[1:]:
-        out += enc.encode_async(*f)
-    out += enc.flush()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    counts = kernels.launch_counts()
-    assert len(out) == 1 + n_p, len(out)
-    for k in KERNELS:
-        assert counts[k] > 0, f"kernel {k} was not launched on the main path"
-        assert counts[k] == n_p * len(per_frame[k]), \
-            (k, counts[k], n_p, len(per_frame[k]))
+
+def drive(cfg, frames, label):
+    """One path: frames[0] as the I frame, then the P frames in chunks of
+    cfg.frames_per_launch through encode_async/flush.  The launch counts
+    are zeroed just before and read just after; the wrappers' arguments
+    are recorded in the first chunk, and the chunks after it are timed.
+    Returns (counts, one P frame's calls, FrameRecords, coded frames)."""
+    k = cfg.frames_per_launch
+    n_p = len(frames) - 1
+    assert n_p % k == 0, (n_p, k)
+    recs = []
+    real = binding.encode_slice
+
+    def spy(ccfg, rec):
+        recs.append(rec)
+        return real(ccfg, rec)
+    binding.encode_slice = spy
+    try:
+        enc = Encoder(cfg)
+        out = []
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out += enc.encode_async(*frames[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec = record_calls(lambda: [out.extend(enc.encode_async(*f))
+                                    for f in frames[1:1 + k]])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for f in frames[1 + k:]:
+            out += enc.encode_async(*f)
+        out += enc.flush()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts = kernels.launch_counts()
+    finally:
+        binding.encode_slice = real
+    assert len(out) == 1 + n_p and len(recs) == 1 + n_p, (len(out), len(recs))
+    per_frame = {}
+    for name, v in rec.items():
+        assert v and len(v) % k == 0, (name, len(v))
+        per_frame[name] = v[:len(v) // k]
+    # phase 2 checked the edge cases at these shapes
+    shapes = {name: sorted(tuple(a[0].shape) + a[2:]
+                           if name == "slab_search" else
+                           (a[-2].numel(), a[-1], tuple(a[0].shape))
+                           for a in v) for name, v in per_frame.items()}
+    assert shapes == {name: sorted(v) for name, v in
+                      main_path_calls(cfg).items()}, shapes
+    for name in KERNELS:
+        assert counts[name] > 0, \
+            f"kernel {name} was not launched on the {label} path"
+        assert counts[name] == n_p * len(per_frame[name]), \
+            (name, counts[name], n_p, len(per_frame[name]))
+    assert not any(f._is_idr for f in out[1:]), "unexpected IDR restart"
     y = enc._ref[0].cpu().numpy()[:cfg.height, :cfg.width]
     p = psnr(frames[-1][0], y)
     assert 28.0 < p < 60.0, f"implausible Y PSNR {p:.2f} dB"
-    bits = [f.bits for f in out]
-    log(f"[main] 720p 1I+{n_p}P: I frame {t1 - t0:.3f}s, {n_p} P frames "
-        f"{t2 - t1:.3f}s -> P fps {n_p / (t2 - t1):.3f}, all fps "
-        f"{len(out) / (t2 - t0):.3f}; last-frame Y PSNR {p:.2f} dB; "
-        f"bits {bits}")
+    timed = (f", {n_p - k} P frames {t3 - t2:.3f}s -> P fps "
+             f"{(n_p - k) / (t3 - t2):.3f}" if n_p > k else "")
+    log(f"[{label}] {cfg.width}x{cfg.height} {cfg.rd_mode.name} 1I+{n_p}P: "
+        f"I frame {t1 - t0:.3f}s, first chunk (recording) {t2 - t1:.3f}s"
+        f"{timed}; last-frame Y PSNR {p:.2f} dB; bits "
+        f"{[f.bits for f in out]}; launches {counts}")
+    return counts, per_frame, recs, out
+
+
+def phase_ultrafast():
+    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
+                        rd_mode=RDMode.RD_ULTRAFAST)
+    drive(cfg, synthetic_video(5, cfg.height, cfg.width), "ultrafast")
+
+
+def phase_main(n_p=8):
+    """The default configuration (rd=FAST).  Returns the launch counts of
+    its run and the kernel calls one P frame of its first chunk made."""
+    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100)
+    assert cfg.rd_mode == RDMode.RD_FAST
+    counts, per_frame, recs, out = drive(
+        cfg, fast_video(1 + n_p, cfg.height, cfg.width), "main")
+    tools = [tool_counts(r) for r in recs]
+    for i, (t, f) in enumerate(zip(tools, out)):
+        log(f"[tools] frame {i} {'I' if f._is_idr else 'P'}: {t}, "
+            f"intra_frac {f._intra_frac:.4f}")
+    for key in ("nxn", "intra", "split8"):
+        assert sum(t.get(key, 0) for t in tools) > 0, \
+            f"the main path's video fired no {key} CU"
     return counts, per_frame
 
 
@@ -457,11 +546,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
-                        rd_mode=RDMode.RD_ULTRAFAST)
+    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100)
     phase_compare(cfg)
     phase_cpu_parity()
-    counts, per_frame = phase_main(cfg)
+    phase_ultrafast()
+    counts, per_frame = phase_main()
     rows = kernel_report(counts, per_frame)
     for r in rows:
         lib = ("none" if r["library_ms"] is None

@@ -5,9 +5,9 @@ default) produces one packed int16 record per frame; a host worker thread
 pulls it (one device->host copy per chunk) and the native C++ library
 entropy-codes it, overlapping the device compute of the next chunk.
 
-Supported configuration: IPPP (intra_period > 1) at rd=ULTRAFAST, one
-reference frame, fixed QP, single device.  Other configurations raise
-NotImplementedError.
+Supported configuration: IPPP (intra_period > 1) at rd=FAST (the
+default) or rd=ULTRAFAST, one reference frame, fixed QP, single device.
+Other configurations raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -49,8 +49,8 @@ def _pad_plane(p: np.ndarray, mult: int) -> np.ndarray:
 def check_supported(cfg: EncoderConfig):
     """Raise NotImplementedError for configurations outside the port."""
     bad = []
-    if cfg.rd_mode != RDMode.RD_ULTRAFAST:
-        bad.append("rd_mode other than RD_ULTRAFAST")
+    if cfg.rd_mode == RDMode.RD_FULL:
+        bad.append("rd_mode RD_FULL")
     if cfg.num_ref_frames != 1:
         bad.append("num_ref_frames=2")
     if cfg.bitrate_mode != BitrateMode.FIXED_QP or cfg.adaptive_qp:
@@ -105,21 +105,33 @@ class Encoder:
         self._inbuf: list = []
         self._rc = RateControl(cfg)
         self._force_idr = False
+        # the I frame's tools below ULTRAFAST: the 8x8 split (with the TU
+        # split at the parent's mode) and NxN 4x4 PUs with DST
+        ultra = cfg.rd_mode == RDMode.RD_ULTRAFAST
+        self._search_8x8 = not ultra and cfg.max_pred_depth >= 3
+        self._search_nxn = not ultra and cfg.max_pred_depth >= 4
+        self._tu_split = self._search_8x8 and cfg.max_intra_tr_depth >= 1
         self._worker = concurrent.futures.ThreadPoolExecutor(max_workers=1)
 
     def _p_knobs(self) -> dict:
-        """P-frame knobs of rd=ULTRAFAST (the reference's speed ladder)."""
+        """P-frame knobs per rd_mode (the reference's speed ladder): the
+        second merge round, the intra fallback's rounds, quadtree majority
+        and the 8x8 inter split are off at rd=ULTRAFAST."""
         cfg = self.cfg
+        ultra = cfg.rd_mode == RDMode.RD_ULTRAFAST
         return dict(
             block=16, sign_hiding=cfg.sign_hiding,
             deblocking=cfg.deblocking, sao_enabled=cfg.sao,
-            intra_fallback=False, chroma_rd_scale=3.0,
+            intra_fallback=cfg.intra_in_p and not ultra,
+            chroma_rd_scale=3.0 if ultra else 1.0,
             chroma_qp_offset=cfg.chroma_qp_offset,
             me_precision=cfg.motion_estimation_precision,
             me_subpel_r=3 if cfg.performance_mode == PerfMode.FULL_COMPUTATION
             else 2,
-            merge_rounds=1, fallback_rounds=1, quadtree_majority=False,
-            inter_nxn=False, true_size=cfg.code_true_size)
+            merge_rounds=1 if ultra else 2,
+            fallback_rounds=1 if ultra else 2,
+            quadtree_majority=not ultra, inter_nxn=not ultra,
+            true_size=cfg.code_true_size)
 
     def control(self, cfg: EncoderConfig):
         """Reconfigure mid-stream (drains in-flight work first)."""
@@ -236,6 +248,8 @@ class Encoder:
             self._to_dev(yp), self._to_dev(up), self._to_dev(vp), qp=qp,
             ctu=ctu, sign_hiding=cfg.sign_hiding,
             deblocking=cfg.deblocking, sao_enabled=cfg.sao,
+            search_8x8=self._search_8x8, search_nxn=self._search_nxn,
+            tu_split=self._tu_split,
             chroma_qp_offset=cfg.chroma_qp_offset,
             vis_h=cfg.height,
             vis_w=cfg.width, true_size=cfg.code_true_size)
@@ -422,6 +436,14 @@ class Encoder:
         depth = tail[5 * n8:5 * n8 + bh * bw].reshape(bh, bw)
         pend["dist"] = float(tail[5 * n8 + bh * bw])
         sao_tail = tail[5 * n8 + bh * bw + 1:]
+        nxn8 = np.zeros((2 * bh, 2 * bw), bool)
+        if self._search_nxn:
+            # NxN CUs: the 8-granule flags, then the 4-granule PU map
+            # (mode | cbf << 8)
+            nxn8 = sao_tail[:n8].reshape(2 * bh, 2 * bw).astype(bool)
+            pu4 = sao_tail[n8:5 * n8].reshape(4 * bh, 4 * bw) \
+                .astype(np.int32)
+            sao_tail = sao_tail[5 * n8:]
 
         def rep2(m):
             return np.repeat(np.repeat(m, 2, 0), 2, 1)
@@ -434,7 +456,8 @@ class Encoder:
                 .reshape(a.shape[0] // s, s, a.shape[1] // s, s)
 
         # TU-tree relabel: same-mode quartets fold into the parent CU with
-        # a split transform tree (identical reconstruction, fewer bits)
+        # a split transform tree (identical reconstruction, fewer bits);
+        # NxN CUs never fold
         tr16 = np.zeros((bh, bw), np.uint8)
         fold_ok = cfg.max_intra_tr_depth >= 1
         m8q = quartets(modes8, 2)
@@ -442,6 +465,7 @@ class Encoder:
         same8 = (fold_ok
                  & (m8q == m8q[:, :1, :, :1]).all((1, 3))
                  & (c8q == c8q[:, :1, :, :1]).all((1, 3))
+                 & ~quartets(nxn8, 2).any((1, 3))
                  & (depth == 3))
         depth = np.where(same8, 2, depth)
         tr16 = np.where(same8, 1, tr16).astype(np.uint8)
@@ -477,13 +501,23 @@ class Encoder:
             np.repeat(np.repeat(same32, 4, 0), 4, 1)
         depth = np.where(m64, 0, depth)
         tr16 = np.where(m64, 0, tr16).astype(np.uint8)
+        luma4 = rep2(modes8)
+        cbf_y4 = rep2(cbf8[0])
+        part4 = None
+        if nxn8.any():
+            # NxN CUs: per-4x4 PU modes and TB cbfs, part_size 1
+            nxn4 = rep2(nxn8)
+            luma4 = np.where(nxn4, (pu4 & 0xff).astype(np.uint8), luma4)
+            cbf_y4 = np.where(nxn4, ((pu4 >> 8) & 1).astype(np.uint8),
+                              cbf_y4)
+            part4 = nxn4.astype(np.uint8)
         rec = binding.FrameRecord(
             width=w, height=h, slice_type=2, slice_qp=pend["qp"],
             poc=pend["gop_poc"], is_idr=True,
             cu_depth=rep4(np.clip(depth, 0, 3)).astype(np.uint8),
-            tr_depth=rep4(tr16), intra_luma_mode=rep2(modes8),
-            intra_chroma_mode=rep2(cmodes8),
-            cbf_y=rep2(cbf8[0]), cbf_cb=rep2(cbf8[1]),
+            tr_depth=rep4(tr16), intra_luma_mode=luma4,
+            intra_chroma_mode=rep2(cmodes8), part_size=part4,
+            cbf_y=cbf_y4, cbf_cb=rep2(cbf8[1]),
             cbf_cr=rep2(cbf8[2]),
             coeff_y=cy, coeff_cb=cb, coeff_cr=cr,
             pred_mode=np.ones((h4, w4), np.uint8))

@@ -1,34 +1,66 @@
 """Batched P-frame (inter) encoder.
 
 Port of homerhevc_tpu/models/inter_frame.py (`encode_p_frame`,
-`encode_p_chunk`, `encode_p_chunk_packed`) at the rd=ULTRAFAST knobs of
-the reference's speed ladder: one merge/skip round, no intra fallback, no
-8x8 inter split, quadtree consolidation of MV-uniform groups only; one
-reference, fixed per-frame QP, single device.
+`encode_p_chunk`, `encode_p_chunk_packed`) for one reference, a fixed
+per-frame QP and one device, at the rd=ULTRAFAST and rd=FAST knobs of
+the reference's speed ladder; the serial intra-fallback pass
+(fallback_serial) is not ported.
 
-Stage order: motion estimation -> merge/skip RD over {left, top, global,
-zero, own} candidates -> 16/32/64 quadtree consolidation with TU-size RD
--> chroma coding with chroma MC -> luma deblocking with the effective-QP
-chain -> SAO -> packed device->host record.
+Stage order: motion estimation -> merge/skip RD over {left, top, own,
+global, zero} candidates (a second round re-evaluates left/top from the
+first round's winners) -> isolated intra fallback in rounds -> the
+frame's intra-preference count (scene-change restart) -> 8x8 inter
+split of divergent-motion 16x16 blocks -> 16/32/64 quadtree
+consolidation with TU-size RD (non-uniform groups at their majority MV)
+-> chroma coding with chroma MC (4x4 TBs under split CUs) -> chroma of
+the fallback blocks -> deblocking with the effective-QP chain -> SAO ->
+packed device->host record.
+
+Data-dependent selections keep the reference's static shapes: each
+compaction takes a fixed number of candidates (`_FALLBACK_CAP`,
+`_NXN_CAP`) with a stable descending sort (equal keys lowest index
+first, as the reference's top_k on the CPU), so a P frame makes the same
+kernel calls whatever its content, and no stage waits on the host.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from homerhevc_torch import tables
-from homerhevc_torch.ops import (deblock, f32, interp, me, packing, quant,
-                                 rdbits, sao, transform)
+from homerhevc_torch.models import intra_frame, schedule
+from homerhevc_torch.ops import (deblock, f32, interp, intra, me, packing,
+                                 quant, rdbits, sao, transform)
 from homerhevc_torch.ops.me import blocks as _blocks
 
 _PAD_DIST_W = 0.0625
+_FALLBACK_CAP = 512          # max intra CUs per fallback round
+_NXN_CAP = 512               # max 8x8-split CUs per P frame
 
 
 def _unblocks(blk: torch.Tensor, h: int, w: int) -> torch.Tensor:
     b = blk.shape[-1]
     return blk.reshape(h // b, w // b, b, b).permute(0, 2, 1, 3) \
         .reshape(h, w)
+
+
+def topk_stable(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of a 1-D tensor, equal
+    values lowest index first."""
+    v, i = torch.sort(x, descending=True, stable=True)
+    return v[:k], i[:k]
+
+
+def _put_rows(dst: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
+              src: torch.Tensor) -> torch.Tensor:
+    """dst with rows idx (distinct) replaced by src where ok."""
+    okb = ok.reshape(ok.shape + (1,) * (src.dim() - 1))
+    out = dst.clone()
+    out[idx] = torch.where(okb, src.to(dst.dtype), dst[idx])
+    return out
 
 
 def _tq(resid, size, qp, is_intra, sbh_scan):
@@ -107,11 +139,14 @@ def _cand_rd(cur_c, preds, qp, lam, s, sbh_scan, bits_mv, nc, n, inv=None):
 
 
 def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
-                   lam, s, sbh_scan, cand_fields, inv=None):
-    """Merge/skip RD arbitration (one round): every candidate MV (left,
-    top, own, global, zero) gets an exact prediction, a full
-    T/Q/IQ/IT reconstruction and a forced-zero-residual variant; the
-    per-block winner's (mv, level, recon, pred, cost) are returned."""
+                   lam, s, sbh_scan, cand_fields, inv=None, carry_in=None):
+    """Merge/skip RD arbitration: every candidate MV (left, top, own,
+    global, zero) gets an exact prediction, a full T/Q/IQ/IT
+    reconstruction and a forced-zero-residual variant; the per-block
+    winner's (mv, level, recon, pred, cost) are returned with a carry.
+    Given a previous round's carry, only left/top are re-evaluated and
+    compete with the cached own/global/zero candidates and that round's
+    winner."""
     n = cur_b.shape[0]
     bh, bw = mv_own.shape[:2]
     h, w = bh * s, bw * s
@@ -124,29 +159,42 @@ def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
     lvl_lt, rec_lt, cost_lt = _cand_rd(cur_b.repeat(2, 1, 1), lt_pred, qp,
                                        lam, s, sbh_scan, bits_lt, 2, n,
                                        inv=inv)
-    med = cand_fields[2][0][0, 0]
-    glob_pred = _blocks(_mc_plane_luma(ref_pad, med, 0, h, w), s)
-    zero_pred = _blocks(ref_pad[me.REF_PAD:me.REF_PAD + h,
-                                me.REF_PAD:me.REF_PAD + w], s)
-    own = mv_own.reshape(-1, 2)
-    ogz_mv = torch.cat([own, cand_fields[2][0].reshape(-1, 2),
-                        torch.zeros_like(own)], 0)
-    ogz_pred = torch.cat([pred_own, glob_pred, zero_pred], 0)
-    bits_ogz = torch.stack([rdbits.mvd_bits(own - left_f) + 5.0 + 0.0,
-                            torch.full((n,), 3.0, device=dev),
-                            rdbits.mvd_bits(-left_f) + 5.0], 0)
-    lvl_ogz, rec_ogz, cost_ogz = _cand_rd(cur_b.repeat(3, 1, 1), ogz_pred,
-                                          qp, lam, s, sbh_scan, bits_ogz, 3,
-                                          n, inv=inv)
-    all_mv = torch.cat([lt_mv, ogz_mv], 0)
-    preds = torch.cat([lt_pred, ogz_pred], 0)
-    level = torch.cat([lvl_lt, lvl_ogz], 0)
-    recon = torch.cat([rec_lt, rec_ogz], 0)
-    cost = torch.cat([cost_lt, cost_ogz], 0)              # [5, n]
-    best = torch.argmin(cost, 0)
-    pick = best * n + torch.arange(n, device=dev)
-    return (all_mv[pick], level[pick], recon[pick], preds[pick],
-            cost.amin(0))
+    if carry_in is None:
+        med = cand_fields[2][0][0, 0]
+        glob_pred = _blocks(_mc_plane_luma(ref_pad, med, 0, h, w), s)
+        zero_pred = _blocks(ref_pad[me.REF_PAD:me.REF_PAD + h,
+                                    me.REF_PAD:me.REF_PAD + w], s)
+        own = mv_own.reshape(-1, 2)
+        ogz_mv = torch.cat([own, cand_fields[2][0].reshape(-1, 2),
+                            torch.zeros_like(own)], 0)
+        ogz_pred = torch.cat([pred_own, glob_pred, zero_pred], 0)
+        bits_ogz = torch.stack([rdbits.mvd_bits(own - left_f) + 5.0 + 0.0,
+                                torch.full((n,), 3.0, device=dev),
+                                rdbits.mvd_bits(-left_f) + 5.0], 0)
+        lvl_ogz, rec_ogz, cost_ogz = _cand_rd(
+            cur_b.repeat(3, 1, 1), ogz_pred, qp, lam, s, sbh_scan, bits_ogz,
+            3, n, inv=inv)
+        fixed = (ogz_mv, ogz_pred, lvl_ogz, rec_ogz, cost_ogz)
+    else:
+        fixed = carry_in["fixed"]
+        ogz_mv, ogz_pred, lvl_ogz, rec_ogz, cost_ogz = fixed
+    mvs, preds, levels, recons, costs = ([lt_mv, ogz_mv], [lt_pred, ogz_pred],
+                                         [lvl_lt, lvl_ogz], [rec_lt, rec_ogz],
+                                         [cost_lt, cost_ogz])
+    if carry_in is not None:
+        # the previous round's winner competes as the last candidate
+        mvs.append(carry_in["mv"])
+        preds.append(carry_in["pred"])
+        levels.append(carry_in["level"])
+        recons.append(carry_in["recon"])
+        costs.append(carry_in["cost"][None])
+    cost = torch.cat(costs, 0)                            # [nc, n]
+    pick = torch.argmin(cost, 0) * n + torch.arange(n, device=dev)
+    carry = dict(fixed=fixed, mv=torch.cat(mvs)[pick],
+                 pred=torch.cat(preds)[pick], level=torch.cat(levels)[pick],
+                 recon=torch.cat(recons)[pick], cost=cost.amin(0))
+    return (carry["mv"], carry["level"], carry["recon"], carry["pred"],
+            carry["cost"], carry)
 
 
 def _asm_tiles(t, n: int):
@@ -177,10 +225,12 @@ def _join_quads64(q):
 
 def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
                     elig_tile, qp, lam, bh, bw, n: int, sbh16, sbh32,
-                    inv=None, coded=None):
-    """Fold n x n groups of MV-uniform 16x16 tiles into one (16n)^2 CU
-    when the parent RD (32 TB / four 16 TBs / zero residual; four 32 TBs
-    at n=4) beats the children."""
+                    inv=None, coded=None, ref_pad=None):
+    """Fold n x n groups of 16x16 tiles into one (16n)^2 CU when the
+    parent RD (32 TB / four 16 TBs / zero residual; four 32 TBs at n=4)
+    beats the children.  MV-uniform groups reuse the children's
+    predictions; with `ref_pad` (quadtree majority) the other groups are
+    evaluated too, at their majority MV (one MC gather per group)."""
     dev = cur_b.device
     gh, gw = bh // n, bw // n
     gy = torch.arange(gh, device=dev)
@@ -195,8 +245,19 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
     o_tiles = cur_b[flat].reshape(g, n * n, 16, 16)
     mv_tiles = mv_flat[flat].reshape(g, n * n, 2)
     uniform = (mv_tiles == mv_tiles[:, :1]).all(-1).all(-1)
-    pmv = mv_tiles[:, 0]
+    eq = (mv_tiles[:, :, None] == mv_tiles[:, None, :]).all(-1)
+    maj_i = torch.argmax(eq.sum(-1), -1)
+    maj_mv = mv_tiles[torch.arange(g, device=dev), maj_i]
+    pmv = torch.where(uniform[:, None], mv_tiles[:, 0], maj_mv)
     pred_t = pred_sel[flat].reshape(g, n * n, 16, 16)
+    if ref_pad is not None:
+        s_big = 16 * n
+        gpy = (gy * s_big)[:, None].expand(gh, gw).reshape(-1)
+        gpx = (gx * s_big)[None, :].expand(gh, gw).reshape(-1)
+        pred_maj = me.mc_luma_at(ref_pad, gpy.to(torch.int32),
+                                 gpx.to(torch.int32), maj_mv, s_big)
+        pred_t = torch.where(uniform[:, None, None, None], pred_t,
+                             _split_tiles(pred_maj, n))
 
     visw = None
     if inv is not None:
@@ -250,7 +311,8 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
 
     parent_cost = torch.minimum(torch.minimum(cost_big, cost_tr1),
                                 cost_zero)
-    elig = uniform & ~(elig_tile[flat].reshape(g, n * n).any(-1))
+    maj_ok = torch.ones_like(uniform) if ref_pad is not None else uniform
+    elig = maj_ok & ~(elig_tile[flat].reshape(g, n * n).any(-1))
     if coded is not None:
         s_big = 16 * n
         gpy = (gy * s_big)[:, None]
@@ -298,7 +360,7 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
         .reshape(-1, 16, 16).to(recon_y.dtype)
     pred_sel[flat] = torch.where(
         tk, pred_t, pred_sel[flat].reshape(g, n * n, 16, 16)) \
-        .reshape(-1, 16, 16)
+        .reshape(-1, 16, 16).to(pred_sel.dtype)
     mv_flat[flat] = torch.where(take[:, None, None],
                                 pmv[:, None].expand(g, n * n, 2),
                                 mv_tiles).reshape(-1, 2)
@@ -309,10 +371,11 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
 
 def quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y, cost16,
                          excl, qp, lam, bh: int, bw: int, sign_hiding: bool,
-                         inv=None, coded=None):
-    """Bottom-up CU consolidation 16 -> 32 -> 64 with TU RDO.  Returns
-    (mv [bh,bw,2], level_y, recon_y, cbf_y [bh,bw], cu_depth, tr_depth,
-    chroma16 [bh//2, bw//2])."""
+                         inv=None, coded=None, ref_pad=None):
+    """Bottom-up CU consolidation 16 -> 32 -> 64 with TU RDO (ref_pad:
+    non-uniform groups at their majority MV).  Returns (mv [bh,bw,2],
+    level_y, recon_y, cbf_y [bh,bw], cu_depth, tr_depth, chroma16
+    [bh//2, bw//2])."""
     dev = cur_b.device
     sbh16 = tuple(tables.scan_order(16, tables.SCAN_DIAG)) \
         if sign_hiding else None
@@ -322,14 +385,14 @@ def quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y, cost16,
     (mv_flat, level_y, recon_y, pred_sel, cost32, take32, cbf32_t, trd32,
      tidx32) = _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y,
                                cost16, excl, qp, lam, bh, bw, 2, sbh16,
-                               sbh32, inv, coded)
+                               sbh32, inv, coded, ref_pad)
     cost32_tile = torch.zeros((bh * bw,), dtype=torch.float32, device=dev)
     cost32_tile[tidx32.reshape(-1)] = torch.repeat_interleave(
         cost32 / 4.0, 4)
     (mv_flat, level_y, recon_y, pred_sel, cost64, take64, cbf64_t, trd64,
      tidx64) = _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y,
                                cost32_tile, excl, qp, lam, bh, bw, 4,
-                               sbh16, sbh32, inv, coded)
+                               sbh16, sbh32, inv, coded, ref_pad)
     cu_depth = torch.full((bh * bw,), 2, dtype=torch.int32, device=dev)
     tr_depth = torch.zeros((bh * bw,), dtype=torch.int32, device=dev)
     cbf_y = (level_y != 0).any(-1).any(-1)
@@ -375,46 +438,123 @@ def p_caps_small(nb: int):
         min(cap_c, max(4, nb // 512))
 
 
-def inter_boundary_strength(cbf, mv, block: int, h: int, w: int, tb2=None):
-    """BS maps for a P frame without intra CUs (spec 8.7.2.4): 1 at a
-    PU/TU boundary where either side has luma cbf or the MVs differ by
-    >= 4 quarter-pel; interior edges of 32-wide TBs (tb2) are off."""
+def _rep2(x: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """Repeat each entry of the first two axes k times along both."""
+    return torch.repeat_interleave(torch.repeat_interleave(x, k, 0), k, 1)
+
+
+def inter_boundary_strength(cbf, mv, block: int, h: int, w: int,
+                            is_intra=None, tb2=None, mv8=None, nxn=None,
+                            cbf8=None):
+    """BS maps for a P frame (spec 8.7.2.4): 2 at a PU/TU boundary where
+    either side is intra, else 1 where either side has luma cbf or the
+    MVs differ by >= 4 quarter-pel; interior edges of 32-wide TBs (tb2)
+    are off.  With mv8 [2bh, 2bw, 2], nxn [bh, bw] and cbf8 [2bh, 2bw]
+    (8x8 split CUs) the MV and cbf terms are evaluated per 8 pel, and a
+    16-interior 8-edge is a boundary only inside a split block.
+    Returns the vertical-edge map [h/4, w/8] and horizontal [h/8, w/4]."""
     bh, bw = cbf.shape
     dev = cbf.device
     c = cbf.to(torch.bool)
-    cond_v = (c[:, :-1] | c[:, 1:]) \
-        | ((mv[:, :-1] - mv[:, 1:]).abs() >= 4).any(-1)
-    cond_h = (c[:-1] | c[1:]) | ((mv[:-1] - mv[1:]).abs() >= 4).any(-1)
+    if mv8 is not None:
+        c8 = cbf8.to(torch.bool)
+        cond_v = c8[:, 1:-1:2] | c8[:, 2::2]                # [2bh, bw-1]
+        cond_h = c8[1:-1:2, :] | c8[2::2, :]                # [bh-1, 2bw]
+    else:
+        cond_v = (c[:, :-1] | c[:, 1:]) \
+            | ((mv[:, :-1] - mv[:, 1:]).abs() >= 4).any(-1)
+        cond_h = (c[:-1] | c[1:]) | ((mv[:-1] - mv[1:]).abs() >= 4).any(-1)
     if tb2 is not None:
         j = torch.arange(bw - 1, device=dev)
-        cond_v = cond_v & ~(((j % 2) == 0)[None, :] & tb2[:, 1:])
+        interior_v = ((j % 2) == 0)[None, :] & tb2[:, 1:]
         i = torch.arange(bh - 1, device=dev)
-        cond_h = cond_h & ~(((i % 2) == 0)[:, None] & tb2[1:, :])
+        interior_h = ((i % 2) == 0)[:, None] & tb2[1:, :]
+        if mv8 is not None:
+            interior_v = torch.repeat_interleave(interior_v, 2, 0)
+            interior_h = torch.repeat_interleave(interior_h, 2, 1)
+        cond_v = cond_v & ~interior_v
+        cond_h = cond_h & ~interior_h
+    i32 = dict(dtype=torch.int32, device=dev)
+    if mv8 is not None:
+        mvd8_v = ((mv8[:, :-1] - mv8[:, 1:]).abs() >= 4).any(-1)
+        mvd8_h = ((mv8[:-1] - mv8[1:]).abs() >= 4).any(-1)
+        val16_v = (cond_v | mvd8_v[:, 1::2]).to(torch.int32)
+        val16_h = (cond_h | mvd8_h[1::2, :]).to(torch.int32)
+        c8 = cbf8.to(torch.bool)
+        ci_v = c8[:, 0:-1:2] | c8[:, 1::2]                  # [2bh, bw]
+        ci_h = c8[0:-1:2, :] | c8[1::2, :]                  # [bh, 2bw]
+        nxn_r = torch.repeat_interleave(nxn, 2, 0)
+        vali_v = ((mvd8_v[:, 0::2] | ci_v) & nxn_r).to(torch.int32)
+        nxn_c = torch.repeat_interleave(nxn, 2, 1)
+        vali_h = ((mvd8_h[0::2, :] | ci_h) & nxn_c).to(torch.int32)
+        if is_intra is not None:
+            ii = is_intra.to(torch.bool)
+            i_v = torch.repeat_interleave(ii[:, :-1] | ii[:, 1:], 2, 0)
+            val16_v = torch.where(i_v, 2, val16_v)
+            i_h = torch.repeat_interleave(ii[:-1] | ii[1:], 2, 1)
+            val16_h = torch.where(i_h, 2, val16_h)
+        bs_v = torch.zeros((h // 4, w // 8), **i32)
+        bs_v[:, 2::2] = torch.repeat_interleave(val16_v, 2, 0)
+        bs_v[:, 1::2] = torch.repeat_interleave(vali_v, 2, 0)
+        bs_h = torch.zeros((h // 8, w // 4), **i32)
+        bs_h[2::2, :] = torch.repeat_interleave(val16_h, 2, 1)
+        bs_h[1::2, :] = torch.repeat_interleave(vali_h, 2, 1)
+        return bs_v, bs_h
+    val_v = cond_v.to(torch.int32)
+    val_h = cond_h.to(torch.int32)
+    if is_intra is not None:
+        ii = is_intra.to(torch.bool)
+        val_v = torch.where(ii[:, :-1] | ii[:, 1:], 2, val_v)
+        val_h = torch.where(ii[:-1] | ii[1:], 2, val_h)
     step = block // 8
-    bs_v = torch.zeros((h // 4, w // 8), dtype=torch.int32, device=dev)
-    bs_v[:, step::step] = torch.repeat_interleave(
-        cond_v.to(torch.int32), block // 4, 0)
-    bs_h = torch.zeros((h // 8, w // 4), dtype=torch.int32, device=dev)
-    bs_h[step::step, :] = torch.repeat_interleave(
-        cond_h.to(torch.int32), block // 4, 1)
+    bs_v = torch.zeros((h // 4, w // 8), **i32)
+    bs_v[:, step::step] = torch.repeat_interleave(val_v, block // 4, 0)
+    bs_h = torch.zeros((h // 8, w // 4), **i32)
+    bs_h[step::step, :] = torch.repeat_interleave(val_h, block // 4, 1)
     return bs_v, bs_h
 
 
-def _edge_qp_maps(eff_map, h: int, w: int, cell: int):
-    """Per-edge average QP maps for the luma deblock passes (spec
-    8.7.2.5.3: qp = (QpP + QpQ + 1) >> 1): [h/4, w/8] and [h/8, w/4]."""
+def chroma_boundary_strength(is_intra, block: int, hc: int, wc: int):
+    """Chroma BS maps (only BS 2 filters, spec 8.7.2.5.5): 2 where either
+    side of a block edge is intra; [hc//2, wc//8] and [hc//8, wc//2]."""
+    ii = is_intra.to(torch.bool)
+    v2 = (ii[:, :-1] | ii[:, 1:]).to(torch.int32) * 2
+    h2 = (ii[:-1] | ii[1:]).to(torch.int32) * 2
+    cb = block // 2
+    step = cb // 8
+    i32 = dict(dtype=torch.int32, device=ii.device)
+    bs_v = torch.zeros((hc // 2, wc // 8), **i32)
+    bs_v[:, step::step] = torch.repeat_interleave(v2, cb // 2, 0)
+    bs_h = torch.zeros((hc // 8, wc // 2), **i32)
+    bs_h[step::step, :] = torch.repeat_interleave(h2, cb // 2, 1)
+    return bs_v, bs_h
+
+
+def _edge_qp_maps(eff_map, h: int, w: int, cell: int, chroma_qp_offset=None):
+    """Per-edge average QP maps of the deblock passes (spec 8.7.2.5.3:
+    qp = (QpP + QpQ + 1) >> 1): luma [h/4, w/8] and [h/8, w/4]; with
+    chroma_qp_offset, the chroma maps [hc/2, wc/8] and [hc/8, wc/2]
+    mapped through the chroma table (spec 8.7.2.5.5)."""
     ncy, ncx = eff_map.shape
     dev = eff_map.device
+    chroma = chroma_qp_offset is not None
+    ex = 16 if chroma else 8
+    nv = w // 16 if chroma else w // 8
+    nh = h // 16 if chroma else h // 8
     rows = torch.repeat_interleave(eff_map, cell // 4, 0)
-    x = torch.arange(w // 8, device=dev) * 8
+    x = torch.arange(nv, device=dev) * ex
     cl = torch.div(x - 1, cell, rounding_mode="floor").clamp(0, ncx - 1)
     cr = torch.div(x, cell, rounding_mode="floor").clamp(0, ncx - 1)
     qp_v = (rows[:, cl] + rows[:, cr] + 1) >> 1
     cols = torch.repeat_interleave(eff_map, cell // 4, 1)
-    yy = torch.arange(h // 8, device=dev) * 8
+    yy = torch.arange(nh, device=dev) * ex
     rt = torch.div(yy - 1, cell, rounding_mode="floor").clamp(0, ncy - 1)
     rb = torch.div(yy, cell, rounding_mode="floor").clamp(0, ncy - 1)
     qp_h = (cols[rt, :] + cols[rb, :] + 1) >> 1
+    if chroma:
+        cqt = torch.as_tensor(tables.CHROMA_QP_TABLE, device=dev)
+        qp_v = cqt[(qp_v + chroma_qp_offset).clamp(0, 57)]
+        qp_h = cqt[(qp_h + chroma_qp_offset).clamp(0, 57)]
     return qp_v, qp_h
 
 
@@ -444,34 +584,264 @@ def _effective_qp16(qp: int, qp_map, cbf_any_g, cu_depth, ctu: int,
         .amin(-1)
 
     def rep(m):
-        return torch.repeat_interleave(
-            torch.repeat_interleave(m, r16, 0), r16, 1)
+        return _rep2(m, r16)
     return torch.where(cstart < rep(first), rep(prev_eff.reshape(ncy, ncx)),
                        rep(qp_map))
 
 
-def _deblock_luma_p(out_y, qp: int, cbf_any, cbf_y, mv, cu_depth, tr_depth,
-                    ctu: int, s: int, coded=None):
-    """Luma deblocking of a P frame with the decoder's effective-QP chain;
-    edges beyond the coded picture (cw, ch) stay off."""
-    h, w = out_y.shape
-    ncy, ncx = h // ctu, w // ctu
-    qp_map = torch.full((ncy, ncx), qp, dtype=torch.int64,
-                        device=out_y.device)
-    qp_g16 = _effective_qp16(qp, qp_map, cbf_any, cu_depth, ctu, s)
-    tb2 = (tr_depth == 0) & (cu_depth == 1) | (cu_depth == 0)
-    bs_v, bs_h = inter_boundary_strength(cbf_y, mv, s, h, w, tb2=tb2)
-    if coded is not None:
-        bs_v[:, coded[0] // 8:] = 0
-        bs_h[coded[1] // 8:, :] = 0
-    qp_v, qp_h = _edge_qp_maps(qp_g16, h, w, 16)
-    out_y = deblock._luma_pass(out_y, bs_v, qp_v)
-    return deblock._luma_pass(out_y.T.contiguous(), bs_h.T,
-                              qp_h.T).T.contiguous()
+@functools.lru_cache(maxsize=None)
+def _fallback_avail_np(bw: int, bh: int, s: int, geom=None) -> np.ndarray:
+    """Per-block ADI availability [nb, 4s+1] of the fallback blocks at
+    target block size s (16 luma, 8 chroma): z-scan neighbour segments
+    of the 16-block grid (64x64 CTUs), clipped at the coded picture
+    bounds geom = (step, cw, ch) in the target plane."""
+    av = schedule.availability(bw, bh, 4)
+    seg5 = np.stack([av["bottomleft"], av["left"], av["corner"], av["top"],
+                     av["topright"]], -1).reshape(-1, 5)
+    blk = intra_frame._avail_mask(seg5, s)
+    if geom is not None:
+        step, cwt, cht = geom
+        idx = np.arange(blk.shape[0])
+        px = (idx % bw) * step
+        py = (idx // bw) * step
+        j = np.arange(4 * s + 1)
+        row = np.where(j < 2 * s, py[:, None] + 2 * s - 1 - j,
+                       py[:, None] - 1)
+        col = np.where(j <= 2 * s, px[:, None] - 1,
+                       px[:, None] + (j - 2 * s - 1))
+        blk = blk & (row < cht) & (col < cwt)
+    return blk
 
 
-def _code_chroma(u32, v32, ref_u, ref_v, mv_f, pos_y, pos_x, chroma16,
-                 qp_c: int, lam_cs, cs: int, bh: int, bw: int, sbh_scan_c,
+@functools.lru_cache(maxsize=None)
+def _fallback_avail(bw, bh, s, geom, device) -> torch.Tensor:
+    return torch.as_tensor(_fallback_avail_np(bw, bh, s, geom),
+                           device=device)
+
+
+def _gather_adi_blocks(buf, py, px, size: int):
+    """ADI L-shapes [k, 4S+1] of k blocks: one (2S+1)-square window
+    gather per block (the window kernel), then its first column
+    bottom-up and first row."""
+    win = me._gather_windows(buf, py, px, 2 * size + 1)
+    left = torch.flip(win[:, 1:2 * size + 1, 0], (-1,))
+    return torch.cat([left, win[:, 0, :]], -1)
+
+
+def _quadrants(device):
+    """(dy, dx) [4] of the z-order quadrants of a block."""
+    q = torch.arange(4, device=device)
+    return q // 2, q % 2
+
+
+def _neigh8(g: torch.Tensor) -> torch.Tensor:
+    """OR of the 8 neighbours of each cell of a bool grid (zero pad)."""
+    bh, bw = g.shape
+    pad = torch.nn.functional.pad(g.to(torch.uint8), (1, 1, 1, 1)) \
+        .to(torch.bool)
+    out = torch.zeros_like(g)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                out = out | pad[1 + dy:1 + dy + bh, 1 + dx:1 + dx + bw]
+    return out
+
+
+def _intra_fallback_luma(cur_b, recon_y, level_y, cbf_y, inter_pred, qp,
+                         s, bh, bw, h, w, sbh_scan, rounds, inv, geom):
+    """Luma of the intra fallback: up to _FALLBACK_CAP inter CUs per round
+    become intra CUs, over `rounds` batched passes.  Candidates: blocks
+    whose DC-prediction SAD beats 0.75 x the inter SAD and whose
+    8-neighbourhood holds no other candidate (so their references are
+    final); the best by SAD gain are compacted, searched over all 35
+    modes from exact references, coded and scattered back.  Returns
+    (recon, level, cbf, is_intra [nb], modes [nb], round-0 candidate
+    count, per-round (sel, ok, mode))."""
+    nb = bh * bw
+    kcap = min(_FALLBACK_CAP, nb)
+    dev = cur_b.device
+    avail = _fallback_avail(bw, bh, s, geom, dev)
+    pos_y = torch.arange(bh, dtype=torch.int32,
+                         device=dev).repeat_interleave(bw) * s
+    pos_x = (torch.arange(bw, dtype=torch.int32, device=dev) * s).repeat(bh)
+    inter_sad = (cur_b - inter_pred).abs().sum((-1, -2), dtype=torch.int32)
+    is_intra = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    modes = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    cbf = cbf_y.reshape(-1)
+    rounds_out = []
+    cand_count = None
+    for rnd in range(rounds):
+        plane = _unblocks(recon_y, h, w)
+        # DC proxy from the first-ring sums of the edge-padded recon
+        top = torch.cat([plane[:1], plane[s - 1:h - 1:s]], 0)   # [bh, w]
+        left = torch.cat([plane[:, :1], plane[:, s - 1:w - 1:s]], 1)
+        top_sum = top.reshape(bh, bw, s).sum(-1, dtype=torch.int32)
+        left_sum = left.reshape(bh, s, bw).sum(1, dtype=torch.int32)
+        dc = torch.div(top_sum + left_sum + s, 2 * s,
+                       rounding_mode="floor").reshape(nb)
+        dc_sad = (cur_b - dc[:, None, None]).abs().sum(
+            (-1, -2), dtype=torch.int32)
+        cand = (dc_sad.to(torch.float32)
+                < 0.75 * inter_sad.to(torch.float32)) & (is_intra == 0)
+        if inv is not None:
+            cand = cand & ~inv
+        if rnd == 0:
+            cand_count = cand.sum(dtype=torch.int32)
+        cgrid = cand.reshape(bh, bw)
+        isolated = (cgrid & ~_neigh8(cgrid)).reshape(nb)
+        gain = torch.where(isolated, inter_sad - dc_sad, -1)
+        gv, sel = topk_stable(gain, kcap)
+        ok = gv > 0
+        # full 35-mode search on the selected blocks, from exact refs
+        buf = torch.nn.functional.pad(plane.to(torch.int32),
+                                      (1, s, 1, s)).contiguous()
+        adi = intra.substitute_refs(
+            _gather_adi_blocks(buf, pos_y[sel], pos_x[sel], s), avail[sel])
+        preds = intra.predict_all_modes(adi, s, True)
+        cur_sel = cur_b[sel]
+        sads = (preds - cur_sel[:, None]).abs().sum((-1, -2),
+                                                    dtype=torch.int32)
+        best = torch.argmin(sads, -1)
+        pred_sel = preds[torch.arange(kcap, device=dev), best]
+        lvl, rr = _tq(cur_sel - pred_sel, s, qp, True, sbh_scan)
+        rec = (pred_sel + rr).clamp(0, 255)
+        recon_y = _put_rows(recon_y, sel, ok, rec)
+        level_y = _put_rows(level_y, sel, ok, lvl)
+        cbf = _put_rows(cbf, sel, ok, (lvl != 0).any(-1).any(-1))
+        is_intra = _put_rows(is_intra, sel, ok, torch.ones_like(sel))
+        modes = _put_rows(modes, sel, ok, best)
+        rounds_out.append((sel, ok, best))
+    return (recon_y, level_y, cbf.reshape(bh, bw), is_intra, modes,
+            cand_count, rounds_out)
+
+
+def _intra_fallback_chroma(rec_blocks, orig_blocks, level_c, cbf_c, sel,
+                           ok, best, cs, bh, bw, h, w, qp_c, scan, geom):
+    """Chroma (DM) of one fallback round in one plane, after the inter
+    chroma pass, so its references are the final reconstruction."""
+    dev = rec_blocks.device
+    plane = _unblocks(rec_blocks, h // 2, w // 2)
+    cbuf = torch.nn.functional.pad(plane.to(torch.int32),
+                                   (1, cs, 1, cs)).contiguous()
+    py = torch.div(sel, bw, rounding_mode="floor") * cs
+    px = (sel % bw) * cs
+    adi = intra.substitute_refs(
+        _gather_adi_blocks(cbuf, py, px, cs),
+        _fallback_avail(bw, bh, cs, geom, dev)[sel])
+    pred = intra.predict_single_mode(adi, best, cs, False)
+    lvl, rr = _tq(orig_blocks[sel] - pred, cs, qp_c, True, scan)
+    rec = (pred + rr).clamp(0, 255)
+    return (_put_rows(rec_blocks, sel, ok, rec),
+            _put_rows(level_c, sel, ok, lvl),
+            _put_rows(cbf_c.reshape(-1), sel, ok,
+                      (lvl != 0).any(-1).any(-1)).reshape(bh, bw))
+
+
+def _intra_pref_count(cur, sad_me, cand_count, qpt, ctu: int):
+    """The frame's intra-preference count for the scene-change restart:
+    blocks whose dense 35-mode SATD cost beats the ME cost, counted when
+    the cheap signals suggest a scene change (many fallback candidates,
+    or a mean ME cost above 6 per pixel), else 0.  The dense pass always
+    runs and the count is selected on the device: no host sync.  The
+    mean sums the float32 costs in float64; the reference's float32 sum
+    (whose order XLA picks by shape) can differ from it only where it
+    rounds across the threshold."""
+    h, w = cur.shape
+    nb16 = (h // 16) * (w // 16)
+    sqrt_lam = torch.sqrt(rdbits.rd_lambda_f32(qpt, True))
+    _, ip_cost = intra_frame._dense_best(cur, 16, ctu, sqrt_lam)
+    count = (ip_cost.reshape(-1) < sad_me.reshape(-1)).sum(dtype=torch.int32)
+    mean_sad_px = sad_me.to(torch.float64).sum() / float(h * w)
+    maybe_scene = (cand_count > nb16 // 4) | (mean_sad_px > 6.0)
+    return torch.where(maybe_scene, count, 0)
+
+
+def _split8(cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
+            cbf_y, is_intra, dil, inv16, qpt, lam, sign_hiding):
+    """8x8 inter CUs: 16x16 blocks with divergent motion re-code as four
+    8x8 CUs with their own MVs (+-3 integer pel around the CU's MV,
+    keeping its subpel phase) and 8x8 TBs, when the RD with the split's
+    header and MV bits beats the 16x16 winner.  Candidates: the
+    _NXN_CAP eligible blocks of largest residual SAD.  Returns (nxn16
+    [nb], mv8 per 8x8 [4nb, 2], cbf8 [4nb], level_y, recon_y, cbf_y,
+    cost16)."""
+    r8 = 3
+    bh, bw = mv.shape[:2]
+    nb = bh * bw
+    dev = cur.device
+    capb = min(_NXN_CAP, nb)
+    bw8 = 2 * bw
+    mv16_8 = _rep2(mv).reshape(-1, 2)                   # [4nb, 2]
+    resid16 = (cur_b - pred_sel).abs().sum((-1, -2)).to(torch.float32)
+    elig = (is_intra == 0) & ~dil.reshape(-1)
+    if inv16 is not None:
+        elig = elig & ~inv16
+    kv_f, sel_gf = topk_stable(torch.where(elig, resid16, -1.0), capb)
+    keep = torch.zeros((nb,), dtype=torch.bool, device=dev)
+    keep[sel_gf] = kv_f > 0
+    kb, bsel = topk_stable(torch.where(
+        keep & elig, (1 << 30) - torch.arange(nb, device=dev), 0), capb)
+    okb = kb > 0
+    qdy, qdx = _quadrants(dev)
+    byi = torch.div(bsel, bw, rounding_mode="floor")
+    bxi = bsel % bw
+    pu_sel = ((2 * byi[:, None] + qdy) * bw8
+              + 2 * bxi[:, None] + qdx).reshape(-1)
+    cur8 = _blocks(cur, 8)[pu_sel]                     # [4capb, 8, 8]
+    p8y = (torch.div(pu_sel, bw8, rounding_mode="floor") * 8).to(torch.int32)
+    p8x = ((pu_sel % bw8) * 8).to(torch.int32)
+    mv16_q = mv16_8[pu_sel]
+    win8 = me._gather_windows(ref_pad, me.REF_PAD + p8y
+                              + (mv16_q[:, 0] >> 2) - r8,
+                              me.REF_PAD + p8x + (mv16_q[:, 1] >> 2) - r8,
+                              8 + 2 * r8)
+    sads8 = me._stacked_window_sads(win8, cur8, 8, r8)
+    mv8 = mv16_q + 4 * me._offsets(r8, dev)[torch.argmin(sads8, 0)]
+    pred8 = me.mc_luma_at(ref_pad, p8y, p8x, mv8, 8)
+
+    def asm8(t):    # [4capb, 8, 8] quadrant-major -> [capb, 16, 16]
+        return t.reshape(-1, 2, 2, 8, 8).permute(0, 1, 3, 2, 4) \
+            .reshape(-1, 16, 16)
+
+    sbh8 = tuple(tables.scan_order(8, tables.SCAN_DIAG)) \
+        if sign_hiding else None
+    lvl8, rr8 = _tq(cur8 - pred8, 8, qpt, False, sbh8)
+    rec8 = (pred8 + rr8).clamp(0, 255)
+    lvl8, rec8 = _rd_zero(lvl8, rec8, pred8, cur8, lam, qp=qpt)
+    rec_nxn = asm8(rec8)
+    lvl_nxn = asm8(lvl8)
+    ssd_n = _ssd(rec_nxn, cur_b[bsel])
+    mvd8 = mv8 - mv16_q
+    cu_bits = 3.0 + torch.where((mvd8 == 0).all(-1), 2.0,
+                                rdbits.mvd_bits(mvd8) + 4.0)
+    rb_q = rdbits.residual_bits(lvl8, 8, qp=qpt)
+    bits16 = f32.row_sum((cu_bits + rb_q).reshape(-1, 4)) + 1.0
+    cost_nxn = f32.fma(lam, bits16, ssd_n)
+    diverged = (mvd8 != 0).any(-1).reshape(-1, 4).any(-1)
+    take = okb & diverged & (cost_nxn < cost16[bsel])
+    take4 = torch.repeat_interleave(take, 4)
+    nxn16 = _put_rows(torch.zeros((nb,), dtype=torch.bool, device=dev),
+                      bsel, take, take)
+    level_y = _put_rows(level_y, bsel, take, lvl_nxn)
+    recon_y = _put_rows(recon_y, bsel, take, rec_nxn)
+    cbf_y = _put_rows(cbf_y.reshape(-1), bsel, take,
+                      (lvl_nxn != 0).any(-1).any(-1)).reshape(bh, bw)
+    cost16 = _put_rows(cost16, bsel, take, cost_nxn)
+    mv8_pu = _put_rows(mv16_8, pu_sel, take4, mv8)
+    cbf8q = _put_rows(torch.zeros((4 * nb,), dtype=torch.bool, device=dev),
+                      pu_sel, take4, (lvl8 != 0).any(-1).any(-1))
+    return nxn16, mv8_pu, cbf8q, level_y, recon_y, cbf_y, cost16
+
+
+def _chroma_planes(ref_u, ref_v):
+    cpad = me.REF_PAD // 2
+    return torch.stack([me.pad_edge(ref_u.to(torch.int32), cpad),
+                        me.pad_edge(ref_v.to(torch.int32), cpad)]) \
+        .contiguous()
+
+
+def _code_chroma(u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c: int,
+                 lam_cs, cs: int, bh: int, bw: int, sbh_scan_c,
                  sign_hiding: bool, inv16):
     """Chroma coding at the final MVs: one 16x16 chroma TB where the luma
     TB is 32-wide, else four 8x8 TBs; both planes' MC windows come from
@@ -481,10 +851,8 @@ def _code_chroma(u32, v32, ref_u, ref_v, mv_f, pos_y, pos_x, chroma16,
     cpad = me.REF_PAD // 2
     cby = cpad + pos_y // 2 + (mv_f[:, 0] >> 3) - 1
     cbx = cpad + pos_x // 2 + (mv_f[:, 1] >> 3) - 1
-    cplanes = torch.stack([me.pad_edge(ref_u.to(torch.int32), cpad),
-                           me.pad_edge(ref_v.to(torch.int32), cpad)])
     ri2 = torch.repeat_interleave(torch.arange(2, device=dev), nb)
-    cw2 = me._gather_windows_ref(cplanes.contiguous(), ri2, cby.repeat(2),
+    cw2 = me._gather_windows_ref(cplanes, ri2, cby.repeat(2),
                                  cbx.repeat(2), cs + 3) \
         .reshape(2, nb, cs + 3, cs + 3)
     g2h, g2w = bh // 2, bw // 2
@@ -494,8 +862,7 @@ def _code_chroma(u32, v32, ref_u, ref_v, mv_f, pos_y, pos_x, chroma16,
     if inv16 is not None:
         ig = inv16.reshape(bh, bw)
         inv16g = (ig[::2, ::2] & ig[1::2, 1::2]).reshape(-1)
-    ch16 = torch.repeat_interleave(torch.repeat_interleave(chroma16, 2, 0),
-                                   2, 1)
+    ch16 = _rep2(chroma16)
 
     def asm(t):
         return t.reshape(g2h, 2, g2w, 2, cs, cs).permute(0, 2, 1, 4, 3, 5) \
@@ -526,11 +893,68 @@ def _code_chroma(u32, v32, ref_u, ref_v, mv_f, pos_y, pos_x, chroma16,
         lvl_c.append(new_lvl)
         rec_c.append(torch.where(sel16, tiles(rec16c), rec8))
         cbf_c.append(torch.where(
-            ch16, torch.repeat_interleave(torch.repeat_interleave(
-                cbf16c.reshape(g2h, g2w), 2, 0), 2, 1),
+            ch16, _rep2(cbf16c.reshape(g2h, g2w)),
             (new_lvl != 0).any(-1).any(-1).reshape(bh, bw)))
-
     return lvl_c, rec_c, cbf_c
+
+
+def _split8_chroma(u32, v32, cplanes, nxn16, mv8_pu, pos_y, pos_x, lvl_c,
+                   rec_c, cbf_c, qp_c: int, lam_cs, cs: int, bh: int,
+                   bw: int, sign_hiding: bool):
+    """Chroma of the 8x8 split CUs: each sub-CU's 4x4 chroma TB, MC'd at
+    its own MV (compacted to _NXN_CAP blocks), overwrites the TB8 result.
+    Returns (lvl_c, rec_c, cbf_c, per-8 chroma cbfs [2, 4nb])."""
+    nb = bh * bw
+    dev = u32.device
+    capb = min(_NXN_CAP, nb)
+    cpad = me.REF_PAD // 2
+    kv, bsel = topk_stable(torch.where(
+        nxn16, (1 << 30) - torch.arange(nb, device=dev), 0), capb)
+    okb = kv > 0
+    qdy, qdx = _quadrants(dev)
+    byi = torch.div(bsel, bw, rounding_mode="floor")
+    bxi = bsel % bw
+    pu_idx = ((2 * byi[:, None] + qdy) * (2 * bw)
+              + 2 * bxi[:, None] + qdx).reshape(-1)
+    mv8s = mv8_pu[pu_idx]                               # [4capb, 2]
+    puy = (pos_y[bsel][:, None] + qdy * 8).reshape(-1)
+    pux = (pos_x[bsel][:, None] + qdx * 8).reshape(-1)
+    cby = cpad + puy // 2 + (mv8s[:, 0] >> 3) - 1
+    cbx = cpad + pux // 2 + (mv8s[:, 1] >> 3) - 1
+    ri = torch.repeat_interleave(torch.arange(2, device=dev), 4 * capb)
+    cw = me._gather_windows_ref(cplanes, ri, cby.repeat(2), cbx.repeat(2),
+                                4 + 3)                  # [2*4capb, 7, 7]
+    pn = interp.mc_chroma_phases(cw, (mv8s[:, 0] & 7).repeat(2),
+                                 (mv8s[:, 1] & 7).repeat(2), 4)
+
+    def quads(c):      # [capb, 8, 8] -> [capb*4, 4, 4]
+        return c.reshape(-1, 2, 4, 2, 4).permute(0, 1, 3, 2, 4) \
+            .reshape(-1, 4, 4)
+
+    def unquads(q):    # [capb*4, 4, 4] -> [capb, 8, 8]
+        return q.reshape(-1, 2, 2, 4, 4).permute(0, 1, 3, 2, 4) \
+            .reshape(-1, 8, 8)
+
+    orig4 = torch.cat([quads(_blocks(p, cs)[bsel]) for p in (u32, v32)])
+    scan4 = tuple(tables.scan_order(4, tables.SCAN_DIAG)) \
+        if sign_hiding else None
+    lvl4, rr4 = _tq(orig4 - pn, 4, qp_c, False, scan4)
+    rec4 = (pn + rr4).clamp(0, 255)
+    lvl4, rec4 = _rd_zero(lvl4, rec4, pn, orig4, lam_cs, qp=qp_c)
+    cbf4 = (lvl4 != 0).any(-1).any(-1)                 # [2*4capb]
+    ok4 = torch.repeat_interleave(okb, 4)
+    cbf8c = []
+    for p in range(2):
+        part = slice(4 * capb * p, 4 * capb * (p + 1))
+        lvl_c[p] = _put_rows(lvl_c[p], bsel, okb, unquads(lvl4[part]))
+        rec_c[p] = _put_rows(rec_c[p], bsel, okb, unquads(rec4[part]))
+        cbf8c.append(_put_rows(
+            torch.zeros((4 * nb,), dtype=torch.bool, device=dev), pu_idx,
+            ok4, cbf4[part]))
+        cbf_c[p] = _put_rows(cbf_c[p].reshape(-1), bsel, okb,
+                             cbf4[part].reshape(capb, 4).any(-1)) \
+            .reshape(bh, bw)
+    return lvl_c, rec_c, cbf_c, cbf8c
 
 
 def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
@@ -538,22 +962,20 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                    sao_enabled: bool = False, ctu: int = 64,
                    intra_fallback: bool = False,
                    chroma_rd_scale: float = 1.0, chroma_qp_offset: int = 0,
-                   me_precision: int = 2, me_subpel_r: int = 2, qp_map=None, vis_h: int = None,
-                   vis_w: int = None, merge_rounds: int = 1,
-                   fallback_rounds: int = 1, fallback_serial: int = 0,
-                   quadtree_majority: bool = False, inter_nxn: bool = False,
-                   true_size: bool = False, wpp_substreams: bool = False,
-                   scaling_lists: bool = False, **unsupported) -> dict:
+                   me_precision: int = 2, me_subpel_r: int = 2, qp_map=None,
+                   vis_h: int = None, vis_w: int = None,
+                   merge_rounds: int = 2, fallback_rounds: int = 2,
+                   fallback_serial: int = 0, quadtree_majority: bool = True,
+                   inter_nxn: bool = False, true_size: bool = False,
+                   wpp_substreams: bool = False, scaling_lists: bool = False,
+                   **unsupported) -> dict:
     """Encode one P frame against one reference.  y/u/v: uint8/int32
     CTU-padded planes; ref_*: int32 reconstructed (deblocked, SAO'd)
     reference planes of the same shapes.  Returns a dict of tensors
     (recon planes, coefficient planes, mv, cbf, `packed`,
     `packed_full`)."""
-    if intra_fallback or inter_nxn or quadtree_majority \
-            or merge_rounds != 1 or fallback_serial:
-        raise NotImplementedError(
-            "rd=FAST/FULL P-frame tools (intra fallback, inter split8, "
-            "quadtree majority, second merge round)")
+    if fallback_serial:
+        raise NotImplementedError("serial intra-fallback pass")
     if qp_map is not None or wpp_substreams or scaling_lists:
         raise NotImplementedError("per-CTU QP / WPP substreams / scaling "
                                   "lists")
@@ -593,16 +1015,19 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
         ref_y = repad(ref_y, ch8, cw8)
         ref_u = repad(ref_u, ch8 // 2, cw8 // 2)
         ref_v = repad(ref_v, ch8 // 2, cw8 // 2)
+    geom_l = None if cw8 is None else (s, cw8, ch8)
+    geom_c = None if cw8 is None else (cs, cw8 // 2, ch8 // 2)
+    coded = None if cw8 is None else (cw8, ch8)
     cur = y.to(torch.int32)
     refy = ref_y.to(torch.int32)
     u32 = u.to(torch.int32)
     v32 = v.to(torch.int32)
 
     with record_function("p.me"):
-        mv, _, pred = me.motion_estimate(cur, refy, block=s,
-                                         precision=me_precision,
-                                         subpel_r=me_subpel_r,
-                                         sqrt_lam=torch.sqrt(lam))
+        mv, sad_me, pred = me.motion_estimate(cur, refy, block=s,
+                                              precision=me_precision,
+                                              subpel_r=me_subpel_r,
+                                              sqrt_lam=torch.sqrt(lam))
     pos_y = torch.arange(bh, dtype=torch.int32,
                          device=dev).repeat_interleave(bw) * s
     pos_x = (torch.arange(bw, dtype=torch.int32, device=dev) * s).repeat(bh)
@@ -616,36 +1041,133 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     ref_pad = me.pad_edge(refy, me.REF_PAD).contiguous()
 
     with record_function("p.merge"):
-        mv_flat, level_y, recon_y, pred_sel, cost16 = _merge_skip_rd(
-            cur_b, ref_pad, pos_y, pos_x, mv, pred, qpt, lam, s, sbh_scan,
-            merge_candidate_fields(mv), inv=inv16)
-    mv = mv_flat.reshape(bh, bw, 2)
+        # round 2 re-evaluates only the left/top candidates, built from
+        # round 1's winners
+        mv_me, carry = mv, None
+        for _ in range(merge_rounds):
+            mv_flat, level_y, recon_y, pred_sel, cost16, carry = \
+                _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_me, pred,
+                               qpt, lam, s, sbh_scan,
+                               merge_candidate_fields(mv), inv=inv16,
+                               carry_in=carry)
+            mv = mv_flat.reshape(bh, bw, 2)
+    cbf_y = (level_y != 0).any(-1).any(-1).reshape(bh, bw)
 
-    excl = torch.zeros((nb,), dtype=torch.bool, device=dev)
+    is_intra = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    intra_modes = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    cand_count = torch.zeros((), dtype=torch.int32, device=dev)
+    fb_rounds = []
+    if intra_fallback:
+        with record_function("p.fallback"):
+            (recon_y, level_y, cbf_y, is_intra, intra_modes, cand_count,
+             fb_rounds) = _intra_fallback_luma(
+                cur_b, recon_y, level_y, cbf_y, pred_sel, qpt, s, bh, bw, h,
+                w, sbh_scan, fallback_rounds, inv16, geom_l)
+        with record_function("p.intra_pref"):
+            cand_count = torch.maximum(
+                cand_count, _intra_pref_count(cur, sad_me, cand_count, qpt,
+                                              ctu))
+
+    # blocks whose recon a fallback block's references may have read stay
+    # as they are through split8 and the quadtree
+    dil = _neigh8(is_intra.reshape(bh, bw).to(torch.bool)) \
+        | is_intra.reshape(bh, bw).to(torch.bool)
+    nxn16 = torch.zeros((nb,), dtype=torch.bool, device=dev)
+    mv8_pu = cbf8q = None
+    if inter_nxn:
+        with record_function("p.split8"):
+            nxn16, mv8_pu, cbf8q, level_y, recon_y, cbf_y, cost16 = _split8(
+                cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
+                cbf_y, is_intra, dil, inv16, qpt, lam, sign_hiding)
+
     with record_function("p.quadtree"):
         mv, level_y, recon_y, cbf_y, cu_depth, tr_depth, chroma16 = \
             quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y,
-                                 cost16, excl, qpt, lam, bh, bw, sign_hiding,
-                                 inv=inv16,
-                                 coded=None if cw8 is None else (cw8, ch8))
+                                 cost16, dil.reshape(-1) | nxn16, qpt, lam,
+                                 bh, bw, sign_hiding, inv=inv16, coded=coded,
+                                 ref_pad=ref_pad if quadtree_majority
+                                 else None)
+        # split blocks become four 8x8 CUs (depth 3, TU8 leaves)
+        cu_depth = torch.where(nxn16.reshape(bh, bw), 3, cu_depth) \
+            .to(torch.int32)
     mv_f = mv.reshape(-1, 2)
 
+    lam_cs = lam_c * chroma_rd_scale
     with record_function("p.chroma"):
+        cplanes = _chroma_planes(ref_u, ref_v)
         lvl_c, rec_c, cbf_c = _code_chroma(
-            u32, v32, ref_u, ref_v, mv_f, pos_y, pos_x, chroma16, qp_c,
-            lam_c * chroma_rd_scale, cs, bh, bw, sbh_scan_c, sign_hiding,
-            inv16)
+            u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c, lam_cs,
+            cs, bh, bw, sbh_scan_c, sign_hiding, inv16)
+        cbf8c = [torch.zeros((4 * nb,), dtype=torch.bool, device=dev)] * 2
+        if inter_nxn:
+            lvl_c, rec_c, cbf_c, cbf8c = _split8_chroma(
+                u32, v32, cplanes, nxn16, mv8_pu, pos_y, pos_x, lvl_c,
+                rec_c, cbf_c, qp_c, lam_cs, cs, bh, bw, sign_hiding)
+
+    if intra_fallback:
+        # per round, so a later round's references read the chroma the
+        # earlier rounds committed
+        with record_function("p.fallback_chroma"):
+            orig_c = [_blocks(u32, cs), _blocks(v32, cs)]
+            for sel, ok, best in fb_rounds:
+                for p in range(2):
+                    rec_c[p], lvl_c[p], cbf_c[p] = _intra_fallback_chroma(
+                        rec_c[p], orig_c[p], lvl_c[p], cbf_c[p], sel, ok,
+                        best, cs, bh, bw, h, w, qp_c, sbh_scan_c, geom_c)
 
     dist16 = (recon_y - cur_b).abs().sum() // nb
     out_y = _unblocks(recon_y, h, w)
     out_u = _unblocks(rec_c[0], h // 2, w // 2)
     out_v = _unblocks(rec_c[1], h // 2, w // 2)
 
+    # per-8x8 sub-CU MVs and TB cbfs: split blocks keep their quadrants,
+    # the rest replicate the CU's
+    mv8_final = _rep2(mv).reshape(-1, 2)
+    cbf8_y = _rep2(cbf_y).reshape(-1)
+    cbf8_bits = torch.zeros((4 * nb,), dtype=torch.int32, device=dev)
+    if mv8_pu is not None:
+        nxn8f = _rep2(nxn16.reshape(bh, bw)).reshape(-1)
+        mv8_final = torch.where(nxn8f[:, None], mv8_pu, mv8_final)
+        cbf8_y = torch.where(nxn8f, cbf8q, cbf8_y)
+        cbf8_bits = ((nxn8f & cbf8q).to(torch.int32)
+                     | (cbf8c[0].to(torch.int32) << 1)
+                     | (cbf8c[1].to(torch.int32) << 2))
+
     if deblocking:
         with record_function("p.deblock"):
-            out_y = _deblock_luma_p(out_y, qp, cbf_y | cbf_c[0] | cbf_c[1],
-                                    cbf_y, mv, cu_depth, tr_depth, ctu, s,
-                                    coded=None if cw8 is None else (cw8, ch8))
+            ncy, ncx = h // ctu, w // ctu
+            qp_map = torch.full((ncy, ncx), qp, dtype=torch.int64,
+                                device=dev)
+            qp_g16 = _effective_qp16(qp, qp_map, cbf_y | cbf_c[0] | cbf_c[1],
+                                     cu_depth, ctu, s)
+            ii = is_intra.reshape(bh, bw) if intra_fallback else None
+            tb2 = (tr_depth == 0) & (cu_depth == 1) | (cu_depth == 0)
+            bs_v, bs_h = inter_boundary_strength(
+                cbf_y, mv, s, h, w, is_intra=ii, tb2=tb2,
+                mv8=mv8_final.reshape(2 * bh, 2 * bw, 2) if inter_nxn
+                else None,
+                nxn=nxn16.reshape(bh, bw) if inter_nxn else None,
+                cbf8=cbf8_y.reshape(2 * bh, 2 * bw) if inter_nxn else None)
+            if coded is not None:
+                bs_v[:, coded[0] // 8:] = 0
+                bs_h[coded[1] // 8:, :] = 0
+            qp_v, qp_h = _edge_qp_maps(qp_g16, h, w, 16)
+            out_y = deblock._luma_pass(out_y, bs_v, qp_v)
+            out_y = deblock._luma_pass(out_y.T.contiguous(), bs_h.T,
+                                       qp_h.T).T.contiguous()
+            if intra_fallback:
+                # chroma filters only BS 2 edges (intra-adjacent)
+                bs_vc, bs_hc = chroma_boundary_strength(ii, s, h // 2,
+                                                        w // 2)
+                if coded is not None:
+                    bs_vc[:, coded[0] // 16:] = 0
+                    bs_hc[coded[1] // 16:, :] = 0
+                qpcv, qpch = _edge_qp_maps(qp_g16, h, w, 16,
+                                           chroma_qp_offset)
+                out_u, out_v = (
+                    deblock._chroma_pass(deblock._chroma_pass(
+                        p, bs_vc, qpcv).T.contiguous(), bs_hc.T,
+                        qpch.T).T.contiguous() for p in (out_u, out_v))
 
     sao_fields = None
     if sao_enabled:
@@ -669,23 +1191,33 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
             lvl_c[0], [(cap_cs, esc_cs), (cap_c, esc_c)])
         pk_v_s, pk_v_f = packing.compact_blocks_i8_tiers(
             lvl_c[1], [(cap_cs, esc_cs), (cap_c, esc_c)])
-    i16 = dict(dtype=torch.int16, device=dev)
-    parts = [mv.to(torch.int16).reshape(-1),
-             torch.zeros((nb,), **i16),                 # ref_idx
-             cbf.to(torch.int16).reshape(-1),
-             torch.zeros((nb,), **i16),                 # is_intra
-             torch.zeros((nb,), **i16),                 # intra modes
-             cu_depth.to(torch.int16).reshape(-1),
-             tr_depth.to(torch.int16).reshape(-1),
-             torch.zeros((4 * nb,), **i16),             # per-8 MV deltas
-             torch.zeros((nb,), **i16),                 # sub-CU cbfs
-             torch.zeros((1,), **i16),                  # intra candidates
-             dist16.clamp(0, 32767).to(torch.int16)[None],
-             pk_y_s, pk_u_s, pk_v_s]
-    if sao_fields is not None:
-        parts.append(sao.pack_sao_fields(sao_fields))
-    out["packed"] = torch.cat(parts)
-    out["packed_full"] = torch.cat([pk_y_f, pk_u_f, pk_v_f])
+        # split-CU sidebands: per-8 MV deltas vs the CU MV as int8 pairs
+        # (dy | dx << 8), and the four sub-CUs' 3-bit TB-cbf fields in
+        # one int16 per 16-block
+        d8 = mv8_final - _rep2(mv).reshape(-1, 2)
+        mvd8_pk = (d8[:, 0] & 0xFF) | ((d8[:, 1] & 0xFF) << 8)
+        mvd8_pk = torch.where(mvd8_pk >= 1 << 15, mvd8_pk - (1 << 16),
+                              mvd8_pk)
+        c8g = cbf8_bits.reshape(bh, 2, bw, 2)
+        cbf8_blk = (c8g[:, 0, :, 0] | (c8g[:, 0, :, 1] << 3)
+                    | (c8g[:, 1, :, 0] << 6) | (c8g[:, 1, :, 1] << 9))
+        i16 = dict(dtype=torch.int16, device=dev)
+        parts = [mv.to(torch.int16).reshape(-1),
+                 torch.zeros((nb,), **i16),             # ref_idx
+                 cbf.to(torch.int16).reshape(-1),
+                 is_intra.to(torch.int16),
+                 intra_modes.to(torch.int16),
+                 cu_depth.to(torch.int16).reshape(-1),
+                 tr_depth.to(torch.int16).reshape(-1),
+                 mvd8_pk.to(torch.int16),
+                 cbf8_blk.to(torch.int16).reshape(-1),
+                 cand_count.to(torch.int16)[None],
+                 dist16.clamp(0, 32767).to(torch.int16)[None],
+                 pk_y_s, pk_u_s, pk_v_s]
+        if sao_fields is not None:
+            parts.append(sao.pack_sao_fields(sao_fields))
+        out["packed"] = torch.cat(parts)
+        out["packed_full"] = torch.cat([pk_y_f, pk_u_f, pk_v_f])
     return out
 
 

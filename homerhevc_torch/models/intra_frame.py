@@ -1,15 +1,17 @@
 """Batched intra-frame encoder: dense mode decision + wavefront recon.
 
-Port of homerhevc_tpu/models/intra_frame.py (`encode_frame`) at the
-rd=ULTRAFAST knobs: no 8x8 split, NxN, TU-split or full-RD refinement
-(search_8x8 = search_nxn = tu_split = rd_refine = False), no tiles.
+Port of homerhevc_tpu/models/intra_frame.py (`encode_frame`) without
+tiles, scaling lists and the full-RD top-3 refinement (rd_refine).
 
-1. Dense decision: luma modes at 32 and 16 and the 5-candidate chroma
-   modes, from source-pixel reference samples, for every block at once.
+1. Dense decision: luma modes at 32, 16 and (search_8x8 / search_nxn) 8
+   and 4, and the 5-candidate chroma modes, from source-pixel reference
+   samples, for every block at once.
 2. Wavefront reconstruction over 32x32 slots (models/schedule.py plans):
    each step reconstructs all slots of one anti-diagonal as one batch —
-   a 32x32 CU against its four 16x16 children with SSD + lambda*bits RD,
-   chroma (DM) 16x16 or four 8x8 TBs.
+   a 32x32 CU against its four 16x16 children, each 16x16 against four
+   8x8 CUs (search_8x8), each 8x8 against the TU split at its parent's
+   mode (tu_split) and against four 4x4 NxN PUs with DST (search_nxn),
+   all with SSD + lambda*bits RD; chroma (DM) 16x16, 8x8 or 4x4 TBs.
 3. Deblocking, SAO and the packed device->host record.
 """
 from __future__ import annotations
@@ -124,7 +126,8 @@ def _avail_mask(seg_av: np.ndarray, s: int) -> np.ndarray:
 
 def _dense_best(y32: torch.Tensor, s: int, ctu: int, sqrt_lam):
     """Best intra mode per s x s block (SATD + MPM-aware mode bits,
-    source-pixel references).  Returns [bh, bw] int64."""
+    source-pixel references).  Returns (mode [bh, bw] int64, its cost
+    [bh, bw] float32)."""
     h, w = y32.shape
     bh, bw = h // s, w // s
     nb = bh * bw
@@ -151,7 +154,8 @@ def _dense_best(y32: torch.Tensor, s: int, ctu: int, sqrt_lam):
     all_m = torch.arange(35, device=dev)
     in_mpm = (all_m[None, :, None] == cands[:, None, :]).any(-1)
     cost = f32.fma(sqrt_lam, rdbits.intra_mode_bits(in_mpm), all_s)
-    return torch.argmin(cost, -1).reshape(bh, bw)
+    return (torch.argmin(cost, -1).reshape(bh, bw),
+            cost.amin(-1).reshape(bh, bw))
 
 
 def _dense_best_chroma(u32, v32, lm_grid, s_l: int, ctu: int, sqrt_lam_c):
@@ -196,36 +200,59 @@ def _dense_best_chroma(u32, v32, lm_grid, s_l: int, ctu: int, sqrt_lam_c):
 @functools.lru_cache(maxsize=None)
 def build_plan(width: int, height: int, ctu: int = 64, coded=None):
     """Static wavefront plan over 32x32 slots: per step, the valid slots
-    and their per-pixel availability masks (numpy)."""
+    and their per-pixel availability masks (numpy), z-ordered sub-blocks
+    first: av16 [4, nb, 65], av8 [4, 4, nb, 33], av4 [4, 4, 4, nb, 17]
+    and the chroma masks av16c / av8c."""
     s = 32
     bw, bh = width // s, height // s
     steps, n_steps, batches = schedule.wavefront_schedule(bw, bh, ctu // s)
     cw, ch = coded if coded is not None else (width, height)
-    av16_g = _avail_np(width, height, 16, ctu)
-    av32_g = _avail_np(width, height, 32, ctu)
+    av_g = {k: _avail_np(width, height, k, ctu) for k in (32, 16, 8, 4)}
     plan = []
     for st in range(n_steps):
         by = batches[st, :, 0]
         bx = batches[st, :, 1]
         keep = by >= 0
         by, bx = by[keep], bx[keep]
+        nb = len(by)
         px32, py32 = 32 * bx, 32 * by
-        a32 = av32_g[by, bx]
-        av16 = np.zeros((4, len(by), 65), bool)
-        av16c = np.zeros((4, len(by), 33), bool)
+        a32 = av_g[32][by, bx]
+        av16 = np.zeros((4, nb, 65), bool)
+        av16c = np.zeros((4, nb, 33), bool)
+        av8 = np.zeros((4, 4, nb, 33), bool)
+        av8c = np.zeros((4, 4, nb, 17), bool)
+        av4 = np.zeros((4, 4, 4, nb, 17), bool)
         for k16, (qy, qx) in enumerate(_SUB_OFF):
             p16x, p16y = px32 + 16 * qx, py32 + 16 * qy
-            a = av16_g[2 * by + qy, 2 * bx + qx]
+            a = av_g[16][2 * by + qy, 2 * bx + qx]
             av16[k16] = _pix_masks_np(a, p16x, p16y, 16, cw, ch)
             av16c[k16] = _pix_masks_np(a, p16x, p16y, 8, cw, ch,
                                        chroma=True)
+            for k8, (ry, rx) in enumerate(_SUB_OFF):
+                p8x, p8y = p16x + 8 * rx, p16y + 8 * ry
+                a = av_g[8][4 * by + 2 * qy + ry, 4 * bx + 2 * qx + rx]
+                av8[k16, k8] = _pix_masks_np(a, p8x, p8y, 8, cw, ch)
+                av8c[k16, k8] = _pix_masks_np(a, p8x, p8y, 4, cw, ch,
+                                              chroma=True)
+                for k4, (ty, tx) in enumerate(_SUB_OFF):
+                    a = av_g[4][8 * by + 4 * qy + 2 * ry + ty,
+                                8 * bx + 4 * qx + 2 * rx + tx]
+                    av4[k16, k8, k4] = _pix_masks_np(
+                        a, p8x + 4 * tx, p8y + 4 * ty, 4, cw, ch)
         plan.append(dict(
             by=by.astype(np.int64), bx=bx.astype(np.int64),
             av32=_pix_masks_np(a32, px32, py32, 32, cw, ch),
             av32c=_pix_masks_np(a32, px32, py32, 16, cw, ch, chroma=True),
-            av16=av16, av16c=av16c,
+            av16=av16, av16c=av16c, av8=av8, av8c=av8c, av4=av4,
             force32=(px32 + 32 > cw) | (py32 + 32 > ch)))
     return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(width: int, height: int, ctu: int, coded, device):
+    """build_plan's arrays as tensors on `device`, uploaded once."""
+    return [{k: torch.as_tensor(v, device=device) for k, v in st.items()}
+            for st in build_plan(width, height, ctu, coded)]
 
 
 def _rd_zero_intra(level, recon, pred, orig, lam, qp):
@@ -239,17 +266,54 @@ def _rd_zero_intra(level, recon, pred, orig, lam, qp):
     return level, recon
 
 
-def _tq_recon(orig, pred, size, qp, lam, sign_hiding=False):
-    """residual -> T -> Q(-SBH, diagonal scan) -> IQ -> IT -> recon +
-    zero-RD.  Returns (level, recon, cbf)."""
+@functools.lru_cache(maxsize=None)
+def _mode_scans(size: int, device):
+    """(scan [3, n], inverse [3, n]) raster indices of the diagonal,
+    horizontal and vertical scans."""
+    scans = np.stack([np.asarray(tables.scan_order(size, i), np.int64)
+                      for i in (tables.SCAN_DIAG, tables.SCAN_HOR,
+                                tables.SCAN_VER)])
+    return (torch.as_tensor(scans, device=device),
+            torch.as_tensor(np.argsort(scans, -1), device=device))
+
+
+def _sbh_by_mode(level, du, mode, size: int, sign_hiding: bool):
+    """Sign-bit hiding in each block's own coefficient scan (spec
+    7.4.9.11: intra 4x4/8x8 luma and 4x4 chroma scan vertically for
+    modes 6-14 and horizontally for modes 22-30): one SBH pass on levels
+    gathered into per-block scan order, gathered back after."""
+    if not sign_hiding:
+        return level
+    n = size * size
+    scans, inv = _mode_scans(size, level.device)
+    sel = torch.where((mode >= 6) & (mode <= 14), 2,
+                      torch.where((mode >= 22) & (mode <= 30), 1, 0))
+    shp = level.shape
+    idx = scans[sel.long()]                                # [nb, n]
+    sl = torch.gather(level.reshape(-1, n), 1, idx)
+    sdu = torch.gather(du.reshape(-1, n), 1, idx)
+    fixed = quant.sign_bit_hide(sl.reshape(shp), sdu.reshape(shp),
+                                tuple(range(n)), size)
+    return torch.gather(fixed.reshape(-1, n), 1,
+                        inv[sel.long()]).reshape(shp)
+
+
+def _tq_recon(orig, pred, size, qp, lam, sign_hiding=False, mode=None,
+              is_dst=False):
+    """residual -> T -> Q(-SBH) -> IQ -> IT -> recon + zero-RD.  With
+    `mode` [n], SBH of 4x4 and 8x8 TBs runs in the mode's scan, else in
+    the diagonal one; is_dst: DST-VII (luma 4x4).  Returns (level,
+    recon, cbf)."""
     resid = orig - pred
-    coeff = transform.forward_transform(resid, size)
+    coeff = transform.forward_transform(resid, size, is_dst=is_dst)
     level, du = quant.quantize(coeff, qp, size, is_intra=True)
-    if sign_hiding:
+    if sign_hiding and mode is not None and size in (4, 8):
+        level = _sbh_by_mode(level, du, mode, size, True)
+    elif sign_hiding:
         level = quant.sign_bit_hide(
             level, du, tables.scan_order(size, tables.SCAN_DIAG), size)
     deq = quant.dequantize(level, qp, size, is_intra=True)
-    r = transform.inverse_transform(deq, size)
+    r = transform.inverse_transform(deq, size, is_dst=is_dst)
     recon = (pred + r).clamp(0, 255)
     level, recon = _rd_zero_intra(level, recon, pred, orig, lam, qp)
     cbf = (level != 0).any(-1).any(-1)
@@ -262,6 +326,123 @@ def _ssd_cost(rec, orig, lvl, size, qp, lamf):
                    + _CU_HDR_BITS, ssd)
 
 
+def _luma8(patch8, orig32, o8y, o8x, adi8, m8, m16, cm8, m4s, av4, qp,
+           lamf, sign_hiding, tu_split, search_nxn):
+    """One 8x8 sub-CU of a 16x16 (the reference's sub8 scan body): the
+    8x8 CU at its own mode, or the TU-split candidate at the parent's
+    mode (tu_split), against four 4x4 NxN PUs (search_nxn).  Returns
+    (level, recon, RD cost, effective luma mode, NxN taken, PU modes
+    [4, nb], PU cbfs [4, nb])."""
+    nb = orig32.shape[0]
+    o8 = orig32[:, o8y:o8y + 8, o8x:o8x + 8]
+    if tu_split:
+        # also the sub-8 at the parent 16's mode: when all four take it,
+        # the record stage folds the quartet into one 16 CU with a split
+        # transform tree (1-bit discount); vetoed where the sub's chroma
+        # mode 34 would leave the new DM list
+        m2 = torch.cat([m8, m16])
+        o2 = o8.repeat(2, 1, 1)
+        pr2 = intra.predict_single_mode(adi8.repeat(2, 1), m2, 8, True)
+        l2, r2, c2 = _tq_recon(o2, pr2, 8, qp, lamf, sign_hiding, mode=m2)
+        cost2 = _ssd_cost(r2, o2, l2, 8, qp, lamf)
+        m16_in_def = (m16 == 0) | (m16 == 26) | (m16 == 10) | (m16 == 1)
+        chroma_ok = (cm8 != 34) | m16_in_def
+        take_p = ((cost2[nb:] - lamf < cost2[:nb]) & (m16 != m8)
+                  & chroma_ok)
+        tp = take_p[:, None, None]
+        l8 = torch.where(tp, l2[nb:], l2[:nb])
+        r8 = torch.where(tp, r2[nb:], r2[:nb])
+        c8 = torch.where(take_p, c2[nb:], c2[:nb])
+        m8 = torch.where(take_p, m16, m8)
+        cost_2n = torch.where(take_p, cost2[nb:], cost2[:nb])
+    else:
+        pr8 = intra.predict_single_mode(adi8, m8, 8, True)
+        l8, r8, c8 = _tq_recon(o8, pr8, 8, qp, lamf, sign_hiding, mode=m8)
+        cost_2n = _ssd_cost(r8, o8, l8, 8, qp, lamf)
+    if not search_nxn:
+        return (l8, r8, cost_2n, m8, torch.zeros_like(c8),
+                m8[None].expand(4, nb), c8[None].expand(4, nb))
+    # NxN: four 4x4 PUs in z-order with their own modes, DST TBs and
+    # recon feedback inside the CU
+    p4 = patch8.clone()
+    l4s = torch.zeros((nb, 8, 8), dtype=torch.int32, device=o8.device)
+    cost_n = (lamf * (_CU_HDR_BITS + 10.0)).expand(nb)
+    pu_c = []
+    for k4, (ty, tx) in enumerate(_SUB_OFF):
+        o4y, o4x = o8y + 4 * ty, o8x + 4 * tx
+        adi4 = intra.substitute_refs(_patch_adi(p4, o4y, o4x, 4), av4[k4])
+        pr4 = intra.predict_single_mode(adi4, m4s[k4], 4, True)
+        o4 = orig32[:, o4y:o4y + 4, o4x:o4x + 4]
+        l4, r4, c4 = _tq_recon(o4, pr4, 4, qp, lamf, sign_hiding,
+                               mode=m4s[k4], is_dst=True)
+        ssd4 = ((r4 - o4) ** 2).sum((-1, -2)).to(torch.float32)
+        cost_n = f32.fma(lamf, rdbits.residual_bits(l4, 4, qp=qp),
+                         cost_n + ssd4)
+        p4[:, o4y + 1:o4y + 5, o4x + 1:o4x + 5] = r4
+        l4s[:, 4 * ty:4 * ty + 4, 4 * tx:4 * tx + 4] = l4
+        pu_c.append(c4)
+    rec_n = p4[:, o8y + 1:o8y + 9, o8x + 1:o8x + 9]
+    take_n = cost_n < cost_2n
+    tn = take_n[:, None, None]
+    return (torch.where(tn, l4s, l8), torch.where(tn, rec_n, r8),
+            torch.minimum(cost_n, cost_2n),
+            torch.where(take_n, m4s[0], m8), take_n, m4s,
+            torch.stack(pu_c))
+
+
+def _chroma_slot(rec_p, plane, cy0, cx0, cm32, cm16_all, cm8_eff, sp16,
+                 st, qp_c, lamcf, sign_hiding, search_8x8):
+    """Chroma (DM) of a step's slots in one plane: a 16x16 TB (CU32),
+    8x8 TBs (CU16) and, under split 16s, 4x4 TBs (CU8).  Returns the
+    CU32 variant (levels, recon, cbf) and the children's (levels, recon,
+    cbf [nb, 4, 4])."""
+    nb = cy0.shape[0]
+    orig_c = _window(plane, cy0, cx0, 16)
+    adi_c = intra.substitute_refs(_adi_at(rec_p, cy0, cx0, 16), st["av32c"])
+    pr_c16 = intra.predict_single_mode(adi_c, cm32, 16, False)
+    lc16, rc16, cc16 = _tq_recon(orig_c, pr_c16, 16, qp_c, lamcf,
+                                 sign_hiding)
+    cpatch = _window(rec_p, cy0, cx0, 25).clone()
+    lv_ch = torch.zeros((nb, 16, 16), dtype=torch.int32, device=cy0.device)
+    cbfs = []
+    for k16, (qq_y, qq_x) in enumerate(_SUB_OFF):
+        oy, ox = 8 * qq_y, 8 * qq_x
+        adi8 = intra.substitute_refs(_patch_adi(cpatch, oy, ox, 8),
+                                     st["av16c"][k16])
+        pr8 = intra.predict_single_mode(adi8, cm16_all[k16], 8, False)
+        o8 = orig_c[:, oy:oy + 8, ox:ox + 8]
+        l8, r8, c8 = _tq_recon(o8, pr8, 8, qp_c, lamcf, sign_hiding)
+        if search_8x8:
+            cpatch4 = cpatch.clone()
+            l4s = torch.zeros((nb, 8, 8), dtype=torch.int32,
+                              device=cy0.device)
+            c4s = []
+            for k8, (ry, rx) in enumerate(_SUB_OFF):
+                o4y, o4x = oy + 4 * ry, ox + 4 * rx
+                adi4 = intra.substitute_refs(
+                    _patch_adi(cpatch4, o4y, o4x, 4), st["av8c"][k16, k8])
+                m8 = cm8_eff[k16, k8]
+                pr4 = intra.predict_single_mode(adi4, m8, 4, False)
+                o4 = orig_c[:, o4y:o4y + 4, o4x:o4x + 4]
+                l4, r4, c4 = _tq_recon(o4, pr4, 4, qp_c, lamcf, sign_hiding,
+                                       mode=m8)
+                cpatch4[:, o4y + 1:o4y + 5, o4x + 1:o4x + 5] = r4
+                l4s[:, 4 * ry:4 * ry + 4, 4 * rx:4 * rx + 4] = l4
+                c4s.append(c4)
+            spm = sp16[k16][:, None, None]
+            r8 = torch.where(spm, cpatch4[:, oy + 1:oy + 9, ox + 1:ox + 9],
+                             r8)
+            l8 = torch.where(spm, l4s, l8)
+            cbfs.append(torch.where(sp16[k16][None], torch.stack(c4s),
+                                    c8[None]))
+        else:
+            cbfs.append(c8[None].expand(4, nb))
+        cpatch[:, oy + 1:oy + 9, ox + 1:ox + 9] = r8
+        lv_ch[:, oy:oy + 8, ox:ox + 8] = l8
+    return (lc16, rc16, cc16), (lv_ch, cpatch[:, 1:17, 1:17],
+                                torch.stack(cbfs).permute(2, 0, 1))
+
+
 def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
                  deblocking: bool = False, sao_enabled: bool = False,
                  search_8x8: bool = False, chroma_qp_offset: int = 0,
@@ -272,11 +453,12 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
     """Encode one intra frame; planes uint8/int32 tensors, CTU-padded,
     on the device the frame is computed on.  Returns a dict of tensors
     (recon planes, coefficient planes, decision maps, `packed`)."""
-    if search_8x8 or search_nxn or tu_split or rd_refine:
-        raise NotImplementedError(
-            "intra 8x8/NxN/TU-split/RD refinement (rd=FAST/FULL)")
+    if rd_refine:
+        raise NotImplementedError("intra full-RD refinement (rd=FULL)")
     if tiles is not None or scaling_lists:
         raise NotImplementedError("tiles / scaling lists")
+    if (search_nxn or tu_split) and not search_8x8:
+        raise NotImplementedError("NxN / TU split without the 8x8 split")
     h, w = y.shape
     dev = y.device
     if true_size and vis_w is not None:
@@ -284,7 +466,7 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
         ch8 = (vis_h + 15) // 16 * 16
     else:
         cw8, ch8 = w, h
-    plan = build_plan(w, h, ctu, coded=(cw8, ch8))
+    plan = _device_plan(w, h, ctu, (cw8, ch8), dev)
     qp = int(qp)
     qp_c = int(tables.CHROMA_QP_TABLE[min(max(qp + chroma_qp_offset, 0),
                                           57)])
@@ -296,11 +478,16 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
 
     # ---- pass 1: dense decision
     sqrt_lam = torch.sqrt(lamf)
-    mode32 = _dense_best(y32, 32, ctu, sqrt_lam)
-    mode16 = _dense_best(y32, 16, ctu, sqrt_lam)
+    mode32, _ = _dense_best(y32, 32, ctu, sqrt_lam)
+    mode16, _ = _dense_best(y32, 16, ctu, sqrt_lam)
     sqrt_lam_c = torch.sqrt(lamcf)
     cmode32 = _dense_best_chroma(u32, v32, mode32, 32, ctu, sqrt_lam_c)
     cmode16 = _dense_best_chroma(u32, v32, mode16, 16, ctu, sqrt_lam_c)
+    if search_8x8:
+        mode8, _ = _dense_best(y32, 8, ctu, sqrt_lam)
+        cmode8 = _dense_best_chroma(u32, v32, mode8, 8, ctu, sqrt_lam_c)
+    if search_nxn:
+        mode4, _ = _dense_best(y32, 4, ctu, sqrt_lam)
 
     bh, bw = h // 16, w // 16
     i32 = dict(dtype=torch.int32, device=dev)
@@ -312,101 +499,141 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
     cmodes8_map = torch.ones((2 * bh, 2 * bw), **i32)
     cbf8_map = torch.zeros((3, 2 * bh, 2 * bw), **i32)
     depth_map = torch.full((bh, bw), 2, **i32)
+    nxn8_map = torch.zeros((2 * bh, 2 * bw), **i32)
+    pu4_map = torch.zeros((4 * bh, 4 * bw), **i32)   # mode | cbf << 8
     uv32 = torch.stack([u32, v32])
     qy = torch.tensor([o[0] for o in _SUB_OFF], device=dev)
     qx = torch.tensor([o[1] for o in _SUB_OFF], device=dev)
 
     # ---- pass 2: wavefront reconstruction over 32x32 slots
     for st in plan:
-        by = torch.as_tensor(st["by"], device=dev)
-        bx = torch.as_tensor(st["bx"], device=dev)
+        by, bx = st["by"], st["bx"]
         nb = by.shape[0]
         y0, x0 = by * 32, bx * 32
         m32 = mode32[by, bx]
         orig32 = _window(y32, y0, x0, 32)
 
-        adi32 = intra.substitute_refs(
-            _adi_at(rec_y, y0, x0, 32),
-            torch.as_tensor(st["av32"], device=dev))
+        adi32 = intra.substitute_refs(_adi_at(rec_y, y0, x0, 32),
+                                      st["av32"])
         pred32 = intra.predict_single_mode(adi32, m32, 32, True,
                                            strong=True)
         lvl32, rec32, cbf32 = _tq_recon(orig32, pred32, 32, qp, lamf,
                                         sign_hiding)
 
-        # luma 16 children (z-order; each predicts from its
-        # predecessors' reconstruction)
+        # luma 16 children in z-order, each against its four 8x8 CUs
+        # (search_8x8); each predicts from its predecessors' recon
         patch = _window(rec_y, y0, x0, 49).clone()
         lvl_ch = torch.zeros((nb, 32, 32), **i32)
         cost_children = (lamf * _SPLIT_BITS).expand(nb)
-        m16_all, c16_all = [], []
-        av16 = torch.as_tensor(st["av16"], device=dev)
+        m16_all = [mode16[2 * by + a, 2 * bx + b] for a, b in _SUB_OFF]
+        cm8_all = [[cmode8[4 * by + 2 * a + c, 4 * bx + 2 * b + d]
+                    for c, d in _SUB_OFF] for a, b in _SUB_OFF] \
+            if search_8x8 else None
+        sp16_l, m8_l, cbf8_l, nxn_l, pu4_l, cbf4_l = [], [], [], [], [], []
         for k16, (qq_y, qq_x) in enumerate(_SUB_OFF):
             oy, ox = 16 * qq_y, 16 * qq_x
-            m16 = mode16[2 * by + qq_y, 2 * bx + qq_x]
+            m16 = m16_all[k16]
             adi16 = intra.substitute_refs(
-                _patch_adi(patch, oy, ox, 16), av16[k16])
+                _patch_adi(patch, oy, ox, 16), st["av16"][k16])
             o16 = orig32[:, oy:oy + 16, ox:ox + 16]
             pr16 = intra.predict_single_mode(adi16, m16, 16, True)
-            l16, r16, c16 = _tq_recon(o16, pr16, 16, qp, lamf,
-                                      sign_hiding)
-            cost_children = cost_children + _ssd_cost(r16, o16, l16, 16,
-                                                      qp, lamf)
-            patch[:, oy + 1:oy + 17, ox + 1:ox + 17] = r16
-            lvl_ch[:, oy:oy + 16, ox:ox + 16] = l16
-            m16_all.append(m16)
-            c16_all.append(c16)
-        m16_q = torch.stack(m16_all, 1)                   # [nb, 4]
-        c16_q = torch.stack(c16_all, 1)
+            l16, r16, c16 = _tq_recon(o16, pr16, 16, qp, lamf, sign_hiding)
+            cost16 = _ssd_cost(r16, o16, l16, 16, qp, lamf)
+            if not search_8x8:
+                cost_children = cost_children + cost16
+                patch[:, oy + 1:oy + 17, ox + 1:ox + 17] = r16
+                lvl_ch[:, oy:oy + 16, ox:ox + 16] = l16
+                sp16_l.append(torch.zeros_like(c16))
+                m8_l.append(m16[None].expand(4, nb))
+                cbf8_l.append(c16[None].expand(4, nb))
+                continue
+            patch8 = patch.clone()
+            l8s = torch.zeros((nb, 16, 16), **i32)
+            cost8 = (lamf * _SPLIT_BITS).expand(nb)
+            sub = []
+            for k8, (ry, rx) in enumerate(_SUB_OFF):
+                o8y, o8x = oy + 8 * ry, ox + 8 * rx
+                a, b = 2 * qq_y + ry, 2 * qq_x + rx
+                m8 = mode8[4 * by + a, 4 * bx + b]
+                m4s = torch.stack([mode4[8 * by + 2 * a + c,
+                                         8 * bx + 2 * b + d]
+                                   for c, d in _SUB_OFF]) \
+                    if search_nxn else None
+                adi8 = intra.substitute_refs(
+                    _patch_adi(patch8, o8y, o8x, 8), st["av8"][k16, k8])
+                l8, r8, leaf, eff_m, nxn_o, pu4_o, cbf4_o = _luma8(
+                    patch8, orig32, o8y, o8x, adi8, m8, m16,
+                    cm8_all[k16][k8], m4s,
+                    st["av4"][k16, k8] if search_nxn else None, qp, lamf,
+                    sign_hiding, tu_split, search_nxn)
+                cost8 = cost8 + leaf
+                patch8[:, o8y + 1:o8y + 9, o8x + 1:o8x + 9] = r8
+                l8s[:, 8 * ry:8 * ry + 8, 8 * rx:8 * rx + 8] = l8
+                sub.append((eff_m, (l8 != 0).any(-1).any(-1), nxn_o, pu4_o,
+                            cbf4_o))
+            sp16 = cost8 < cost16
+            cost_children = cost_children + torch.minimum(cost8, cost16)
+            spm = sp16[:, None, None]
+            patch[:, oy + 1:oy + 17, ox + 1:ox + 17] = torch.where(
+                spm, patch8[:, oy + 1:oy + 17, ox + 1:ox + 17], r16)
+            lvl_ch[:, oy:oy + 16, ox:ox + 16] = torch.where(spm, l8s, l16)
+            m8_y, cbf8_y, nxn_y, pu4_y, cbf4_y = (torch.stack(t)
+                                                   for t in zip(*sub))
+            sp16_l.append(sp16)
+            m8_l.append(torch.where(sp16[None], m8_y, m16[None]))
+            cbf8_l.append(torch.where(sp16[None], cbf8_y, c16[None]))
+            nxn_l.append(nxn_y & sp16[None])
+            pu4_l.append(torch.where(sp16[None, None], pu4_y,
+                                     m16[None, None]))
+            cbf4_l.append(torch.where(sp16[None, None], cbf4_y,
+                                      c16[None, None]))
+        sp16_a = torch.stack(sp16_l)                        # [4, nb]
+        m8_y2 = torch.stack(m8_l)                           # [4, 4, nb]
 
         cost32 = _ssd_cost(rec32, orig32, lvl32, 32, qp, lamf)
-        sp32 = (cost_children < cost32) | torch.as_tensor(st["force32"],
-                                                          device=dev)
+        sp32 = (cost_children < cost32) | st["force32"]
         sp = sp32[:, None, None]
         recon = torch.where(sp, patch[:, 1:33, 1:33], rec32)
         level = torch.where(sp, lvl_ch, lvl32)
-        modes_q = torch.where(sp, m16_q[:, :, None].expand(nb, 4, 4),
-                              m32[:, None, None])
-        cbf_q = torch.where(sp, c16_q[:, :, None].expand(nb, 4, 4),
+        modes_q = torch.where(sp, m8_y2.permute(2, 0, 1), m32[:, None, None])
+        cbf_q = torch.where(sp, torch.stack(cbf8_l).permute(2, 0, 1),
                             cbf32[:, None, None])
-        depth_q = torch.where(sp32[:, None], 2, 1).expand(nb, 4)
+        sp16_q = sp16_a.T & sp32[:, None]                   # [nb, 4]
+        depth_q = torch.where(sp32[:, None], torch.where(sp16_q, 3, 2), 1)
 
-        # chroma (DM): 16 TB for a CU32, four 8 TBs for CU16s
+        # chroma (DM): 16 TB for CU32, 8 TB for CU16, 4x4 for CU8; an
+        # NxN CU's chroma takes PU0's luma mode (m8_y2 carries it), and
+        # DM picks follow the TU-split's parent-mode winners
         cm32 = cmode32[by, bx]
-        cm16_q = torch.stack([cmode16[2 * by + a, 2 * bx + b]
-                              for a, b in _SUB_OFF], 1)   # [nb, 4]
-        cmodes_q = torch.where(sp, cm16_q[:, :, None].expand(nb, 4, 4),
-                               cm32[:, None, None])
+        cm16_a = torch.stack([cmode16[2 * by + a, 2 * bx + b]
+                              for a, b in _SUB_OFF])        # [4, nb]
+        if search_8x8:
+            cm8_a = torch.stack([torch.stack(r) for r in cm8_all])
+            if tu_split:
+                m8_dec = torch.stack([torch.stack(
+                    [mode8[4 * by + 2 * a + c, 4 * bx + 2 * b + d]
+                     for c, d in _SUB_OFF]) for a, b in _SUB_OFF])
+                cm8_a = torch.where((cm8_a == m8_dec) & (m8_y2 != m8_dec),
+                                    m8_y2, cm8_a)
+            cm8_eff = torch.where(torch.stack(nxn_l), m8_y2, cm8_a) \
+                if search_nxn else cm8_a
+            cm8_q = cm8_eff.permute(2, 0, 1)
+        else:
+            cm8_eff = None
+            cm8_q = cm16_a.T[:, :, None].expand(nb, 4, 4)
+        cmodes_q = torch.where(
+            sp, torch.where(sp16_q[:, :, None], cm8_q,
+                            cm16_a.T[:, :, None].expand(nb, 4, 4)),
+            cm32[:, None, None])
         cy0, cx0 = y0 // 2, x0 // 2
-        av32c = torch.as_tensor(st["av32c"], device=dev)
-        av16c = torch.as_tensor(st["av16c"], device=dev)
         lv_c, rc_c, cbf_c = [], [], []
         for p in range(2):
-            orig_c = _window(uv32[p], cy0, cx0, 16)
-            adi_c = intra.substitute_refs(
-                _adi_at(rec_c[p], cy0, cx0, 16), av32c)
-            pr_c16 = intra.predict_single_mode(adi_c, cm32, 16, False)
-            lc16, rc16, cc16 = _tq_recon(orig_c, pr_c16, 16, qp_c, lamcf,
-                                         sign_hiding)
-            cpatch = _window(rec_c[p], cy0, cx0, 25).clone()
-            lv_ch = torch.zeros((nb, 16, 16), **i32)
-            c8s = []
-            for k16, (qq_y, qq_x) in enumerate(_SUB_OFF):
-                oy, ox = 8 * qq_y, 8 * qq_x
-                adi8 = intra.substitute_refs(
-                    _patch_adi(cpatch, oy, ox, 8), av16c[k16])
-                pr8 = intra.predict_single_mode(adi8, cm16_q[:, k16], 8,
-                                                False)
-                o8 = orig_c[:, oy:oy + 8, ox:ox + 8]
-                l8, r8, c8 = _tq_recon(o8, pr8, 8, qp_c, lamcf,
-                                       sign_hiding)
-                cpatch[:, oy + 1:oy + 9, ox + 1:ox + 9] = r8
-                lv_ch[:, oy:oy + 8, ox:ox + 8] = l8
-                c8s.append(c8)
-            rc_c.append(torch.where(sp, cpatch[:, 1:17, 1:17], rc16))
-            lv_c.append(torch.where(sp, lv_ch, lc16))
-            cbf_c.append(torch.where(
-                sp, torch.stack(c8s, 1)[:, :, None].expand(nb, 4, 4),
-                cc16[:, None, None]))
+            (lc16, rc16, cc16), (lch, rch, cbch) = _chroma_slot(
+                rec_c[p], uv32[p], cy0, cx0, cm32, cm16_a, cm8_eff, sp16_a,
+                st, qp_c, lamcf, sign_hiding, search_8x8)
+            rc_c.append(torch.where(sp, rch, rc16))
+            lv_c.append(torch.where(sp, lch, lc16))
+            cbf_c.append(torch.where(sp, cbch, cc16[:, None, None]))
 
         # scatter the slots' results
         _put(rec_y, recon, y0 + 1, x0 + 1)
@@ -425,6 +652,15 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
         cbf8_map[0, r8y, r8x] = cbf_q.to(torch.int32)
         cbf8_map[1, r8y, r8x] = cbf_c[0].to(torch.int32)
         cbf8_map[2, r8y, r8x] = cbf_c[1].to(torch.int32)
+        if search_nxn:
+            nxn8_map[r8y, r8x] = (torch.stack(nxn_l).permute(2, 0, 1)
+                                  & sp).to(torch.int32)
+            r4y = 2 * r8y[..., None] + qy
+            r4x = 2 * r8x[..., None] + qx
+            pu4_map[r4y, r4x] = (
+                torch.stack(pu4_l).permute(3, 0, 1, 2)
+                + (torch.stack(cbf4_l).permute(3, 0, 1, 2)
+                   .to(torch.int32) << 8)).to(torch.int32)
 
     out_y = rec_y[1:1 + h, 1:1 + w]
     out_u = rec_c[0, 1:1 + h // 2, 1:1 + w // 2]
@@ -463,6 +699,11 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
              cbf8_map.to(torch.int16).reshape(-1),
              depth_map.to(torch.int16).reshape(-1),
              dist16.clamp(0, 32767).to(torch.int16)[None]]
+    if search_nxn:
+        parts += [nxn8_map.to(torch.int16).reshape(-1),
+                  pu4_map.to(torch.int16).reshape(-1)]
+        out["nxn"] = nxn8_map
+        out["pu4"] = pu4_map
     if sao_fields is not None:
         parts.append(sao.pack_sao_fields(sao_fields))
     out["packed"] = torch.cat(parts)

@@ -2,18 +2,21 @@
 
     python -m homerhevc_torch.profile_main
 
-Encodes 1280x720 IPPP at QP32, rd=ULTRAFAST, frames_per_launch=4 (the
-main path of chip_smoke.py) from seeded synthetic video: one warm-up
-encode, then a timed encode in two windows: the I frame (wall time only:
-its wavefront launches millions of operations, more than the profiler's
-post-processing can digest in a run) and the P frames through
+Encodes 1280x720 IPPP at QP32 in the default configuration (rd=FAST,
+frames_per_launch=4; the main path of chip_smoke.py) from seeded
+synthetic video whose content fires the rd=FAST tools, with one encoder:
+the I frame (wall time only: its wavefront launches millions of
+operations, more than the profiler's post-processing can digest in a
+run), a first P chunk as warm-up, then a P chunk through
 encode_async/flush under torch.profiler.  Prints one JSON line per
 window: its wall time and, for the P window, the share of it in which
 the device ran work, the device operations launched per frame, the host
-and device time of each encoder stage (the "p.*" record_function ranges)
-and the kernels with the most device time.  A last pass over one I frame
-and one P chunk counts the host<->device synchronisations by source line
-(torch.cuda sync debug mode).  Needs a CUDA device.
+and device time of each encoder stage (the "p.*" record_function ranges:
+p.me, p.merge, p.fallback, p.intra_pref, p.split8, p.quadtree, p.chroma,
+p.fallback_chroma, p.deblock, p.sao, p.pack) and the kernels with the
+most device time.  A last pass over one more P chunk counts the
+host<->device synchronisations by source line (torch.cuda sync debug
+mode).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from homerhevc_torch.api import Encoder
-from homerhevc_torch.config import EncoderConfig, RDMode
+from homerhevc_torch.config import EncoderConfig
 from homerhevc_torch.utils.synthetic import synthetic_video
 
 
@@ -121,9 +124,9 @@ P_FRAMES = 4
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_main: CUDA is not available")
-    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
-                        rd_mode=RDMode.RD_ULTRAFAST)
-    frames = synthetic_video(1 + P_FRAMES, cfg.height, cfg.width)
+    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100)
+    frames = synthetic_video(1 + 3 * P_FRAMES, cfg.height, cfg.width,
+                             plants=64, diverge=128, quads=64)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -132,25 +135,22 @@ def main():
     def emit(res):
         print(json.dumps(dict(res, card=card)), flush=True)
 
-    warm = Encoder(cfg)
-    for f in frames[:5]:
-        warm.encode_async(*f)
-    warm.flush()
-
     enc = Encoder(cfg)
     out = []
     emit(_wall("i_frame", lambda: out.extend(enc.encode_async(*frames[0]))))
 
-    def p_frames():
-        for f in frames[1:]:
-            out.extend(enc.encode_async(*f))
-        out.extend(enc.flush())
-    emit(_window("p_frames", p_frames, P_FRAMES))
-    assert len(out) == 1 + P_FRAMES, len(out)
-    enc = Encoder(cfg)
-    syncs = _sync_sites(lambda: [enc.encode_async(*f) for f in frames]
-                        + [enc.flush()])
-    emit(dict(window="sync_sites", frames=len(frames), sites=syncs))
+    def p_chunk(j):
+        def run():
+            for f in frames[1 + j * P_FRAMES:1 + (j + 1) * P_FRAMES]:
+                out.extend(enc.encode_async(*f))
+            out.extend(enc.flush())
+        return run
+    p_chunk(0)()                         # warm-up: allocator, libraries
+    emit(_window("p_frames", p_chunk(1), P_FRAMES))
+    syncs = _sync_sites(p_chunk(2))
+    emit(dict(window="sync_sites", frames=P_FRAMES, sites=syncs))
+    assert len(out) == 1 + 3 * P_FRAMES, len(out)
+    assert not any(f._is_idr for f in out[1:]), "unexpected IDR restart"
 
 
 if __name__ == "__main__":

@@ -4,10 +4,28 @@ from __future__ import annotations
 import numpy as np
 
 
-def synthetic_video(n: int, h: int, w: int, seed: int = 7) -> list:
+def synthetic_video(n: int, h: int, w: int, seed: int = 7,
+                    plants: int = 0, diverge: int = 0, quads: int = 0,
+                    scene_cut: int = None) -> list:
     """n frames (Y, U, V) uint8: textured luma under a global pan of
     (1, 3) pixels per frame, smooth low-frequency chroma (the pattern of
-    the JAX package's bench)."""
+    the JAX package's bench).  The options add content for the rd=FAST
+    P-frame tools (all off by default):
+
+    * plants: from frame 1 on, up to `plants` isolated 16x16 blocks of
+      new flat content (255 and 0 in turns, frame by frame) with the
+      ring of pixels above and left of each in the same value: blocks no
+      reference holds, that DC prediction from their neighbours does;
+    * diverge: an aligned diverge x diverge patch whose 8x8 quadrants, on
+      odd frames, move apart: each shows the previous frame's pixels
+      displaced by its own (1 or 3, 1 or 3) pel;
+    * quads: an aligned quads x quads patch in the bottom-right corner,
+      the same in every frame: vertical stripes over a flat level per
+      8x8 quadrant, which the I frame codes as four 8x8 CUs of one mode
+      (folded into a 16x16 CU with a split transform tree);
+    * scene_cut: from this frame on, the luma shows other texture and a
+      vertical gradient near 255 (above anything the texture holds).
+    """
     rng = np.random.default_rng(seed)
     m = 4 * n + 8
     yy, xx = np.mgrid[0:h + m, 0:w + m]
@@ -18,10 +36,41 @@ def synthetic_video(n: int, h: int, w: int, seed: int = 7) -> list:
         .astype(np.uint8)
     cr = (128 + 40 * np.cos(cxx / 31.0 + 1.0) * np.sin(cyy / 41.0)) \
         .astype(np.uint8)
+    # plant sites: every 4th 16-block, away from the frame's first row
+    # and column of blocks
+    sites = [(by, bx) for by in range(1, h // 16, 4)
+             for bx in range(1, w // 16, 4)][:plants]
+    q0y, q0x = (h - quads) // 16 * 16, (w - quads) // 16 * 16
+    levels = rng.integers(0, 6, (quads // 8, quads // 8)) * 16
+    quad_patch = (((np.arange(quads) // 2) % 2) * 50 + 40)[None, :] \
+        + np.repeat(np.repeat(levels, 8, 0), 8, 1)
     out = []
     for i in range(n):
         dx, dy = 3 * i, i
-        out.append((base[dy:dy + h, dx:dx + w].copy(),
+        y = base[dy:dy + h, dx:dx + w].copy()
+        if scene_cut is not None and i >= scene_cut:
+            g = np.mgrid[0:h, 0:w]
+            y = (250 + g[0] // 16 + 2 * (i - scene_cut)).clip(0, 255) \
+                .astype(np.uint8)
+            y[:, : w // 2] = ((g[1][:, :w // 2] * 7 + g[0][:, :w // 2] * 5)
+                              % 200).astype(np.uint8)
+        if diverge and i % 2 == 1:
+            prev = out[-1][0]
+            p0y, p0x = (h // 2 - diverge // 2) // 16 * 16, \
+                (w // 2 - diverge // 2) // 16 * 16
+            for by in range(p0y, p0y + diverge, 8):
+                for bx in range(p0x, p0x + diverge, 8):
+                    oy = (by // 8 % 2) * 2 + 1
+                    ox = (bx // 8 % 2) * 2 + 1
+                    y[by:by + 8, bx:bx + 8] = prev[by + oy:by + oy + 8,
+                                                   bx + ox:bx + ox + 8]
+        if quads:
+            y[q0y:q0y + quads, q0x:q0x + quads] = quad_patch
+        if i >= 1:
+            val = 255 if i % 2 else 0
+            for by, bx in sites:
+                y[16 * by - 1:16 * by + 16, 16 * bx - 1:16 * bx + 16] = val
+        out.append((y,
                     cb[dy // 2:dy // 2 + h // 2,
                        dx // 2:dx // 2 + w // 2].copy(),
                     cr[dy // 2:dy // 2 + h // 2,
