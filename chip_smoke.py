@@ -12,10 +12,11 @@ Phases (any failure raises and exits non-zero):
      kernels' run-time instantiations, planted slab-search ties (the
      far-corner tie must resolve to flat index 0), values at the top of
      their real range;
-  3. encode 176x144 on cuda and on cpu, at rd=ULTRAFAST (1 I + 4 P) and
-     at rd=FAST (six frames with isolated new blocks, divergent motion and
-     a scene cut that restarts the GOP): the Annex-B bytes and the
-     reconstructions must be identical;
+  3. encode 176x144 on cuda and on cpu, at rd=ULTRAFAST (1 I + 4 P), at
+     rd=FAST (six frames with isolated new blocks, divergent motion and
+     a scene cut that restarts the GOP), under CBR (1 I + 8 P, per-CTU
+     QP with cu_qp_delta) and under VBR with WPP substreams (1 I + 4 P):
+     the Annex-B bytes and the reconstructions must be identical;
   4. the rd=ULTRAFAST path: 1280x720 IPPP at QP32, 1 I + 4 P frames
      through Encoder.encode_async/flush: every kernel launched, at the
      path's shapes;
@@ -27,7 +28,14 @@ Phases (any failure raises and exits non-zero):
      fps, the card's name and power limit, and per kernel, on the inputs
      one P frame of the first chunk gave it, its error, its time (median
      and spread of 5 runs of 50), the plain version's and a PyTorch
-     call's time, and its bound.
+     call's time, and its bound;
+  6. the rate-controlled path, the README's console example: 1280x720
+     CBR at 1250 kbps and 25 fps, rd=FAST, 1 I + 8 P frames through
+     Encoder.encode_async/flush on phase 5's video: every kernel launched
+     at every call site, each equal to its plain version on one CBR P
+     frame's recorded inputs; prints per frame the slice QP, the per-CTU
+     QP range and the bits, the achieved rate against the target, P fps
+     and the I frame's seconds.
 The last line of stdout is {"ok": true, "device": {...}}.
 """
 import json
@@ -42,7 +50,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available")
 
 from homerhevc_torch.api import Encoder                       # noqa: E402
-from homerhevc_torch.config import EncoderConfig, RDMode      # noqa: E402
+from homerhevc_torch.config import (                        # noqa: E402
+    BitrateMode, EncoderConfig, RDMode)
 from homerhevc_torch.entropy import binding                   # noqa: E402
 from homerhevc_torch.ops import kernels                       # noqa: E402
 from homerhevc_torch.utils.synthetic import synthetic_video   # noqa: E402
@@ -284,13 +293,22 @@ def fast_video(n, h, w):
 
 
 def phase_cpu_parity():
-    for rd, frames, sync in (
-            (RDMode.RD_ULTRAFAST, synthetic_video(5, 144, 176), False),
-            (RDMode.RD_FAST, synthetic_video(6, 144, 176, plants=8,
-                                             diverge=32, quads=32,
-                                             scene_cut=4), True)):
-        cfg = EncoderConfig(width=176, height=144, qp=32, intra_period=100,
-                            rd_mode=rd)
+    small = dict(width=176, height=144, qp=32, intra_period=100)
+    rc_video = synthetic_video(9, 144, 176, plants=4, diverge=32)
+    for cfg, frames, sync in (
+            (EncoderConfig(rd_mode=RDMode.RD_ULTRAFAST, **small),
+             synthetic_video(5, 144, 176), False),
+            (EncoderConfig(**small),
+             synthetic_video(6, 144, 176, plants=8, diverge=32, quads=32,
+                             scene_cut=4), True),
+            (EncoderConfig(bitrate_mode=BitrateMode.CBR, bitrate=150,
+                           **small), rc_video, False),
+            (EncoderConfig(bitrate_mode=BitrateMode.VBR, bitrate=150,
+                           wpp_substreams=True, **small), rc_video[:5],
+             False)):
+        name = cfg.rd_mode.name if cfg.bitrate_mode == BitrateMode.FIXED_QP \
+            else cfg.bitrate_mode.name + ("+WPP" if cfg.wpp_substreams
+                                          else "")
         res = {}
         for dev in ("cuda", "cpu"):
             enc = Encoder(cfg, device=dev)
@@ -299,22 +317,27 @@ def phase_cpu_parity():
             out = ([enc.encode(*f) for f in frames] if sync
                    else encode_all(enc, frames))
             res[dev] = ([f.nalus for f in out], [f._is_idr for f in out],
-                        [r.cpu().numpy() for r in enc._ref])
+                        [r.cpu().numpy() for r in enc._ref],
+                        [f._qp for f in out])
         assert len(res["cuda"][0]) == len(frames)
         assert res["cuda"][0] == res["cpu"][0], \
-            f"{rd.name}: cuda/cpu Annex-B bytes differ"
+            f"{name}: cuda/cpu Annex-B bytes differ"
         for a, b in zip(res["cuda"][2], res["cpu"][2]):
             assert np.array_equal(a, b), \
-                f"{rd.name}: cuda/cpu reconstructions differ"
+                f"{name}: cuda/cpu reconstructions differ"
         if sync:
             assert res["cuda"][1] == [True, False, False, False, False,
                                       True], res["cuda"][1]
-        log(f"[parity] 176x144 {rd.name} {len(frames)} frames (IDR at "
-            f"{[i for i, x in enumerate(res['cuda'][1]) if x]}): cuda == "
-            f"cpu ({sum(len(x) for x in res['cuda'][0])} bytes)")
+        if cfg.bitrate_mode == BitrateMode.CBR:
+            assert len(set(res["cuda"][3][1:])) >= 2, \
+                f"CBR kept one P-frame QP: {res['cuda'][3]}"
+        log(f"[parity] 176x144 {name} {len(frames)} frames (IDR at "
+            f"{[i for i, x in enumerate(res['cuda'][1]) if x]}, QPs "
+            f"{res['cuda'][3]}): cuda == cpu "
+            f"({sum(len(x) for x in res['cuda'][0])} bytes)")
 
 
-# ------------------------------------------------------------ phases 4-5
+# ------------------------------------------------------------ phases 4-6
 def psnr(a, b) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
@@ -359,7 +382,8 @@ def drive(cfg, frames, label):
     cfg.frames_per_launch through encode_async/flush.  The launch counts
     are zeroed just before and read just after; the wrappers' arguments
     are recorded in the first chunk, and the chunks after it are timed.
-    Returns (counts, one P frame's calls, FrameRecords, coded frames)."""
+    Returns (counts, one P frame's calls, FrameRecords, coded frames,
+    I-frame seconds, P fps of the timed chunks)."""
     k = cfg.frames_per_launch
     n_p = len(frames) - 1
     assert n_p % k == 0, (n_p, k)
@@ -417,7 +441,8 @@ def drive(cfg, frames, label):
         f"I frame {t1 - t0:.3f}s, first chunk (recording) {t2 - t1:.3f}s"
         f"{timed}; last-frame Y PSNR {p:.2f} dB; bits "
         f"{[f.bits for f in out]}; launches {counts}")
-    return counts, per_frame, recs, out
+    p_fps = (n_p - k) / (t3 - t2) if n_p > k else None
+    return counts, per_frame, recs, out, t1 - t0, p_fps
 
 
 def phase_ultrafast():
@@ -431,7 +456,7 @@ def phase_main(n_p=8):
     its run and the kernel calls one P frame of its first chunk made."""
     cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100)
     assert cfg.rd_mode == RDMode.RD_FAST
-    counts, per_frame, recs, out = drive(
+    counts, per_frame, recs, out, _, _ = drive(
         cfg, fast_video(1 + n_p, cfg.height, cfg.width), "main")
     tools = [tool_counts(r) for r in recs]
     for i, (t, f) in enumerate(zip(tools, out)):
@@ -441,6 +466,47 @@ def phase_main(n_p=8):
         assert sum(t.get(key, 0) for t in tools) > 0, \
             f"the main path's video fired no {key} CU"
     return counts, per_frame
+
+
+def phase_cbr(n_p=8):
+    """The rate-controlled path: the README's console example (CBR at
+    1250 kbps, 25 fps) at 720p on phase 5's video.  Every kernel call of
+    one P frame is held against its plain version on its recorded CBR
+    inputs."""
+    cfg = EncoderConfig(width=1280, height=720, intra_period=100,
+                        bitrate_mode=BitrateMode.CBR, bitrate=1250,
+                        frame_rate=25)
+    counts, per_frame, recs, out, i_s, p_fps = drive(
+        cfg, fast_video(1 + n_p, cfg.height, cfg.width), "cbr")
+    err = 0
+    for name, calls in per_frame.items():
+        for args in calls:
+            err = max(err, same(getattr(kernels, name)(*args),
+                                plain_of(name, args),
+                                f"{name} on CBR inputs"))
+    for i, (r, f) in enumerate(zip(recs, out)):
+        log(f"[cbr] frame {i} {'I' if f._is_idr else 'P'}: slice QP "
+            f"{r.slice_qp}, CTU QP {int(r.qp_map.min())}.."
+            f"{int(r.qp_map.max())}, {f.bits} bits")
+    assert any(len(np.unique(r.qp_map)) >= 2 for r in recs[1:]), \
+        "no P frame coded more than one CTU QP"
+    kbps = sum(f.bits for f in out) * cfg.frame_rate / len(out) / 1e3
+    kbps_p = sum(f.bits for f in out[1:]) * cfg.frame_rate / n_p / 1e3
+    log(f"[cbr] achieved {kbps:.1f} kbps over {len(out)} frames "
+        f"({kbps_p:.1f} over the P frames) against the {cfg.bitrate} kbps "
+        f"target; P fps {p_fps:.3f}; I frame {i_s:.3f} s; kernels equal "
+        f"to their plain versions on CBR inputs (max abs err {err}); "
+        f"launches {counts}")
+
+
+def plain_of(name, args):
+    """The plain PyTorch version of a recorded kernel call."""
+    if name == "gather_windows":
+        plane, by, bx, size = args
+        return kernels.gather_windows_plain(plane[None], None, by, bx, size)
+    if name == "gather_windows_ref":
+        return kernels.gather_windows_plain(*args)
+    return kernels.slab_search_plain(*args)
 
 
 def gather_read_bytes(shape, ri, by, bx, size) -> int:
@@ -489,9 +555,9 @@ def kernel_report(counts, per_frame):
         err = 0
         for args in calls:
             f = (lambda a=args, k=name: getattr(kernels, k)(*a))
+            g = (lambda a=args, k=name: plain_of(k, a))
             if name == "slab_search":
                 cur, slab, bs, ry, rx = args
-                g = (lambda a=args: kernels.slab_search_plain(*a))
                 lib = None      # no one PyTorch call does block matching
                 h, w = cur.shape
                 nbytes = 4 * (cur.numel() + slab.numel()
@@ -499,8 +565,6 @@ def kernel_report(counts, per_frame):
                 ops = 3.0 * (2 * ry + 1) * (2 * rx + 1) * h * w
             elif name == "gather_windows":
                 plane, by, bx, size = args
-                g = (lambda p=plane, a=by, b=bx, s=size:
-                     kernels.gather_windows_plain(p[None], None, a, b, s))
                 lib = unfold_gather(plane[None], None, by, bx, size)
                 n = by.numel()
                 nbytes = (gather_read_bytes((1,) + tuple(plane.shape), None,
@@ -509,7 +573,6 @@ def kernel_report(counts, per_frame):
                 ops = 0.0
             else:
                 planes, ri, by, bx, size = args
-                g = (lambda a=args: kernels.gather_windows_plain(*a))
                 lib = unfold_gather(planes, ri, by, bx, size)
                 n = by.numel()
                 nbytes = (gather_read_bytes(tuple(planes.shape), ri, by, bx,
@@ -551,6 +614,7 @@ def main():
     phase_cpu_parity()
     phase_ultrafast()
     counts, per_frame = phase_main()
+    phase_cbr()
     rows = kernel_report(counts, per_frame)
     for r in rows:
         lib = ("none" if r["library_ms"] is None

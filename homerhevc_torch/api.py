@@ -6,8 +6,10 @@ pulls it (one device->host copy per chunk) and the native C++ library
 entropy-codes it, overlapping the device compute of the next chunk.
 
 Supported configuration: IPPP (intra_period > 1) at rd=FAST (the
-default) or rd=ULTRAFAST, one reference frame, fixed QP, single device.
-Other configurations raise NotImplementedError.
+default) or rd=ULTRAFAST, one reference frame, single device; fixed QP
+or CBR/VBR rate control, per-CTU QP with cu_qp_delta (under CBR/VBR or
+adaptive_qp), WPP substreams.  Other configurations raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -18,13 +20,12 @@ from typing import BinaryIO, Optional
 import numpy as np
 import torch
 
-from homerhevc_torch.config import (BitrateMode, EncoderConfig, PerfMode,
-                                    RDMode)
+from homerhevc_torch.config import EncoderConfig, PerfMode, RDMode
 from homerhevc_torch.entropy import binding
 from homerhevc_torch.models import inter_frame, intra_frame
 from homerhevc_torch.ops import packing
 from homerhevc_torch.ops import sao as sao_ops
-from homerhevc_torch.rc import RateControl
+from homerhevc_torch.rc import RateControl, ctu_qp_map
 from homerhevc_torch.utils.profiler import stage
 
 
@@ -53,10 +54,6 @@ def check_supported(cfg: EncoderConfig):
         bad.append("rd_mode RD_FULL")
     if cfg.num_ref_frames != 1:
         bad.append("num_ref_frames=2")
-    if cfg.bitrate_mode != BitrateMode.FIXED_QP or cfg.adaptive_qp:
-        bad.append("CBR/VBR or adaptive_qp")
-    if cfg.wpp_substreams:
-        bad.append("wpp_substreams")
     if cfg.tile_cols > 1 or cfg.tile_rows > 1 or cfg.tile_auto:
         bad.append("tiles")
     if cfg.scaling_lists:
@@ -104,6 +101,7 @@ class Encoder:
         self._pending: list = []
         self._inbuf: list = []
         self._rc = RateControl(cfg)
+        self._per_ctu_qp = bool(self.ccfg.cu_qp_delta_enabled)
         self._force_idr = False
         # the I frame's tools below ULTRAFAST: the 8x8 split (with the TU
         # split at the parent's mode) and NxN 4x4 PUs with DST
@@ -122,6 +120,7 @@ class Encoder:
         return dict(
             block=16, sign_hiding=cfg.sign_hiding,
             deblocking=cfg.deblocking, sao_enabled=cfg.sao,
+            wpp_substreams=cfg.wpp_substreams,
             intra_fallback=cfg.intra_in_p and not ultra,
             chroma_rd_scale=3.0 if ultra else 1.0,
             chroma_qp_offset=cfg.chroma_qp_offset,
@@ -199,6 +198,10 @@ class Encoder:
     def _account(self, fr: CodedFrame):
         """Post-frame rate-control and scene-change bookkeeping."""
         is_idr = fr._is_idr
+        if self._rc.enabled:
+            # refresh the real state's per-picture target before the VBV
+            # update (the dispatched QPs came from a projection)
+            self._rc.start_pic(is_idr)
         self._rc.end_pic(fr.bits, is_idr, avg_dist=fr._dist,
                          qp=getattr(fr, "_qp", None))
         if (not is_idr and self.cfg.scene_change_reinit
@@ -279,15 +282,26 @@ class Encoder:
         buf = np.concatenate([np.asarray(f[i], np.uint8).ravel()
                               for i in range(3) for f in frames])
         qps = self._rc.project_chunk(k)
+        qp_maps = None
+        if self._per_ctu_qp:
+            # per-CTU QPs from each frame's activity, uploaded as one
+            # tensor per chunk
+            qp_maps = np.stack([
+                ctu_qp_map(qps[j], _pad_plane(np.asarray(f[0], np.uint8),
+                                              ctu), ctu)
+                for j, f in enumerate(frames)])
         out = inter_frame.encode_p_chunk_packed(
             self._to_dev(buf), *self._ref, k=k, vis_h=cfg.height,
-            vis_w=cfg.width, ctu=ctu, qp=qps, **self._p_knobs())
+            vis_w=cfg.width, ctu=ctu, qp=qps,
+            qp_maps=None if qp_maps is None else self._to_dev(qp_maps),
+            **self._p_knobs())
         self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
         pend = dict(kind="p", out=out, qps=qps, poc=self._poc,
                     gop_poc=self._gop_poc,
                     padded=(-cfg.height % ctu + cfg.height,
                             -cfg.width % ctu + cfg.width),
-                    n=n_real, orig=frames[-1] if compute_recon else None,
+                    n=n_real, qp_maps=qp_maps,
+                    orig=frames[-1] if compute_recon else None,
                     event=self._mark())
         self._poc += n_real
         self._gop_poc += n_real
@@ -511,9 +525,12 @@ class Encoder:
             cbf_y4 = np.where(nxn4, ((pu4 >> 8) & 1).astype(np.uint8),
                               cbf_y4)
             part4 = nxn4.astype(np.uint8)
+        # the I frame codes one QP; with cu_qp_delta its map says so
+        qpm = np.full((h4, w4), pend["qp"], np.int8) \
+            if self._per_ctu_qp else None
         rec = binding.FrameRecord(
             width=w, height=h, slice_type=2, slice_qp=pend["qp"],
-            poc=pend["gop_poc"], is_idr=True,
+            poc=pend["gop_poc"], is_idr=True, qp_map=qpm,
             cu_depth=rep4(np.clip(depth, 0, 3)).astype(np.uint8),
             tr_depth=rep4(tr16), intra_luma_mode=luma4,
             intra_chroma_mode=rep2(cmodes8), part_size=part4,
@@ -613,6 +630,11 @@ class Encoder:
         cbf_y4 = np.where(split4, rep2(cbf8 & 1), rep(cbf[0]))
         cbf_cb4 = np.where(split4, rep2((cbf8 >> 1) & 1), rep(cbf[1]))
         cbf_cr4 = np.where(split4, rep2((cbf8 >> 2) & 1), rep(cbf[2]))
+        qpm = None
+        if pend.get("qp_maps") is not None:
+            r = cfg.ctu_size // 4
+            qpm = np.repeat(np.repeat(pend["qp_maps"][pend["k"]], r, 0),
+                            r, 1).astype(np.int8)
         rec = binding.FrameRecord(
             width=w, height=h, slice_type=1,
             slice_qp=int(pend["qps"][pend["k"]]),
@@ -625,7 +647,7 @@ class Encoder:
             cbf_y=np.ascontiguousarray(cbf_y4.astype(np.uint8)),
             cbf_cb=np.ascontiguousarray(cbf_cb4.astype(np.uint8)),
             cbf_cr=np.ascontiguousarray(cbf_cr4.astype(np.uint8)),
-            coeff_y=cy, coeff_cb=cb, coeff_cr=cr,
+            coeff_y=cy, coeff_cb=cb, coeff_cr=cr, qp_map=qpm,
             ref_idx=rep(ref_idx),
             num_ref_l0=max(1, min(cfg.num_ref_frames, pend["gop_poc"])))
         if cfg.sao:

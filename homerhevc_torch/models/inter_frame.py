@@ -1,10 +1,15 @@
 """Batched P-frame (inter) encoder.
 
 Port of homerhevc_tpu/models/inter_frame.py (`encode_p_frame`,
-`encode_p_chunk`, `encode_p_chunk_packed`) for one reference, a fixed
-per-frame QP and one device, at the rd=ULTRAFAST and rd=FAST knobs of
-the reference's speed ladder; the serial intra-fallback pass
-(fallback_serial) is not ported.
+`encode_p_chunk`, `encode_p_chunk_packed`) for one reference and one
+device, at the rd=ULTRAFAST and rd=FAST knobs of the reference's speed
+ladder, with a slice QP per frame and an optional per-CTU QP map
+(cu_qp_delta; WPP substreams reset the deblocking QP chain per CTU
+row); the serial intra-fallback pass (fallback_serial) is not ported.
+
+QP and lambda are per 16-block tensors ([nb], built once per frame from
+the map) in every RD decision, except motion estimation, the
+intra-preference count and SAO, which keep the slice QP's.
 
 Stage order: motion estimation -> merge/skip RD over {left, top, own,
 global, zero} candidates (a second round re-evaluates left/top from the
@@ -117,8 +122,10 @@ def merge_candidate_fields(mv_grid, med=None):
 
 
 def _cand_rd(cur_c, preds, qp, lam, s, sbh_scan, bits_mv, nc, n, inv=None):
-    """TQ + zero-residual fold + cost of nc candidate predictions.
-    Returns (level, recon [nc*n, S, S], cost [nc, n])."""
+    """TQ + zero-residual fold + cost of nc candidate predictions (qp,
+    lam: per block [n]).  Returns (level, recon [nc*n, S, S], cost
+    [nc, n])."""
+    qp = qp.repeat(nc)
     level, rr = _tq(cur_c - preds, s, qp, False, sbh_scan)
     recon = (preds + rr).clamp(0, 255)
     ssd_coded = _ssd(recon, cur_c).reshape(nc, n)
@@ -230,7 +237,9 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
     parent RD (32 TB / four 16 TBs / zero residual; four 32 TBs at n=4)
     beats the children.  MV-uniform groups reuse the children's
     predictions; with `ref_pad` (quadtree majority) the other groups are
-    evaluated too, at their majority MV (one MC gather per group)."""
+    evaluated too, at their majority MV (one MC gather per group).  qp,
+    lam: per tile [nb]; a group never crosses a CTU, so its tiles share
+    them."""
     dev = cur_b.device
     gh, gw = bh // n, bw // n
     gy = torch.arange(gh, device=dev)
@@ -259,6 +268,9 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
         pred_t = torch.where(uniform[:, None, None, None], pred_t,
                              _split_tiles(pred_maj, n))
 
+    qp_tile = qp[flat]
+    qp_g = qp_tile.reshape(g, n * n)[:, 0]
+    lam_g = lam[flat].reshape(g, n * n)[:, 0]
     visw = None
     if inv is not None:
         visw = torch.where(inv[flat].reshape(g, n * n),
@@ -274,18 +286,18 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
     ssd_zero = tile_ssd(pred_t, o_tiles)
     bits_mv = torch.where(uniform, torch.tensor(3.0, device=dev),
                           torch.tensor(6.0, device=dev))
-    cost_zero = f32.fma(lam, bits_mv + 1.0, ssd_zero)
+    cost_zero = f32.fma(lam_g, bits_mv + 1.0, ssd_zero)
 
     if n == 2:
-        l16, rr16 = _tq((o_tiles - pred_t).reshape(-1, 16, 16), 16, qp,
-                        False, sbh16)
+        l16, rr16 = _tq((o_tiles - pred_t).reshape(-1, 16, 16), 16,
+                        qp_tile, False, sbh16)
         rec16 = (pred_t.reshape(-1, 16, 16) + rr16).clamp(0, 255)
         l16 = l16.reshape(g, n * n, 16, 16)
         rec16 = rec16.reshape(g, n * n, 16, 16)
         ssd16 = tile_ssd(rec16, o_tiles)
         rb16 = f32.row_sum(rdbits.residual_bits(
-            l16.reshape(-1, 16, 16), 16, qp=qp).reshape(g, n * n))
-        cost_tr1 = f32.fma(lam, bits_mv + rb16 + 5.0, ssd16)
+            l16.reshape(-1, 16, 16), 16, qp=qp_tile).reshape(g, n * n))
+        cost_tr1 = f32.fma(lam_g, bits_mv + rb16 + 5.0, ssd16)
     else:
         cost_tr1 = torch.full((g,), float("inf"), device=dev)
         l16 = rec16 = None
@@ -294,20 +306,21 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
     pred_big = _asm_tiles(pred_t, n)
     if n == 4:
         q = _split_quads64(orig_big - pred_big)
-        lB, rrB = _tq(q, 32, qp, False, sbh32)
+        qp_q = torch.repeat_interleave(qp_g, 4)
+        lB, rrB = _tq(q, 32, qp_q, False, sbh32)
         recB = (_split_quads64(pred_big) + rrB).clamp(0, 255)
-        rbB = f32.row_sum(rdbits.residual_bits(lB, 32, qp=qp)
+        rbB = f32.row_sum(rdbits.residual_bits(lB, 32, qp=qp_q)
                           .reshape(g, 4))
         lvl_big = _join_quads64(lB)
         rec_big = _join_quads64(recB)
         cbf_big_q = (lB != 0).any(-1).any(-1).reshape(g, 4)
     else:
-        lvl_big, rrB = _tq(orig_big - pred_big, 32, qp, False, sbh32)
+        lvl_big, rrB = _tq(orig_big - pred_big, 32, qp_g, False, sbh32)
         rec_big = (pred_big + rrB).clamp(0, 255)
-        rbB = rdbits.residual_bits(lvl_big, 32, qp=qp)
+        rbB = rdbits.residual_bits(lvl_big, 32, qp=qp_g)
         cbf_big_q = (lvl_big != 0).any(-1).any(-1)[:, None]
     ssd_big = tile_ssd(_split_tiles(rec_big, n), o_tiles)
-    cost_big = f32.fma(lam, bits_mv + rbB + 4.0, ssd_big)
+    cost_big = f32.fma(lam_g, bits_mv + rbB + 4.0, ssd_big)
 
     parent_cost = torch.minimum(torch.minimum(cost_big, cost_tr1),
                                 cost_zero)
@@ -319,7 +332,7 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
         gpx = (gx * s_big)[None, :]
         inside = (gpx + s_big <= coded[0]) & (gpy + s_big <= coded[1])
         elig = elig & inside.reshape(-1)
-    children = f32.fma(lam, 1.0, f32.row_sum(
+    children = f32.fma(lam_g, 1.0, f32.row_sum(
         cost_child[flat].reshape(g, n * n)))
     take = elig & (parent_cost < children)
 
@@ -372,8 +385,8 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
 def quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y, cost16,
                          excl, qp, lam, bh: int, bw: int, sign_hiding: bool,
                          inv=None, coded=None, ref_pad=None):
-    """Bottom-up CU consolidation 16 -> 32 -> 64 with TU RDO (ref_pad:
-    non-uniform groups at their majority MV).  Returns (mv [bh,bw,2],
+    """Bottom-up CU consolidation 16 -> 32 -> 64 with TU RDO (qp, lam:
+    per tile [nb]; ref_pad: non-uniform groups at their majority MV).  Returns (mv [bh,bw,2],
     level_y, recon_y, cbf_y [bh,bw], cu_depth, tr_depth, chroma16
     [bh//2, bw//2])."""
     dev = cur_b.device
@@ -552,31 +565,40 @@ def _edge_qp_maps(eff_map, h: int, w: int, cell: int, chroma_qp_offset=None):
     rb = torch.div(yy, cell, rounding_mode="floor").clamp(0, ncy - 1)
     qp_h = (cols[rt, :] + cols[rb, :] + 1) >> 1
     if chroma:
-        cqt = torch.as_tensor(tables.CHROMA_QP_TABLE, device=dev)
+        cqt = _chroma_qp_table(dev)
         qp_v = cqt[(qp_v + chroma_qp_offset).clamp(0, 57)]
         qp_h = cqt[(qp_h + chroma_qp_offset).clamp(0, 57)]
     return qp_v, qp_h
 
 
 def _effective_qp16(qp: int, qp_map, cbf_any_g, cu_depth, ctu: int,
-                    s: int):
+                    s: int, wpp: bool = False):
     """Per-16 granule QP the decoder's deblocking uses (spec 8.6.1, QG =
     CTB): a CTU without coded cbf keeps the previous QP in decoding
-    order, and CUs before the first cbf-carrying CU of a CTU still use
-    the predicted QP."""
+    order (the slice QP before the first coded one; with WPP substreams
+    the chain restarts at the slice QP on every CTU row), and CUs before
+    the first cbf-carrying CU of a CTU still use the predicted QP."""
     ncy, ncx = qp_map.shape
     r16 = ctu // s
     dev = qp_map.device
-    has_cbf_ctu = cbf_any_g.reshape(ncy, r16, ncx, r16).any(3).any(1) \
-        .reshape(-1)
-    posc = torch.arange(ncy * ncx, device=dev)
-    ff = torch.cummax(torch.where(has_cbf_ctu, posc, -1), 0).values
-    eff = torch.where(ff >= 0, qp_map.reshape(-1)[ff.clamp(min=0)],
-                      torch.full_like(ff, qp).to(qp_map.dtype))
-    prev_eff = torch.cat([torch.full((1,), qp, dtype=eff.dtype,
-                                     device=dev), eff[:-1]])
-    z_g = torch.as_tensor(np.tile(tables.zscan_of_raster(r16), (ncy, ncx)),
-                          device=dev)
+    has_cbf = cbf_any_g.reshape(ncy, r16, ncx, r16).any(3).any(1)
+    if wpp:
+        # forward fill along each CTU row
+        colc = torch.arange(ncx, device=dev).expand(ncy, ncx)
+        ffr = torch.cummax(torch.where(has_cbf, colc, -1), 1).values
+        eff = torch.where(ffr >= 0,
+                          torch.gather(qp_map, 1, ffr.clamp(min=0)), qp)
+        prev_eff = torch.cat([torch.full((ncy, 1), qp, dtype=eff.dtype,
+                                         device=dev), eff[:, :-1]], 1)
+    else:
+        # forward fill over the CTU raster
+        posc = torch.arange(ncy * ncx, device=dev)
+        ff = torch.cummax(torch.where(has_cbf.reshape(-1), posc, -1),
+                          0).values
+        eff = torch.where(ff >= 0, qp_map.reshape(-1)[ff.clamp(min=0)], qp)
+        prev_eff = torch.cat([torch.full((1,), qp, dtype=eff.dtype,
+                                         device=dev), eff[:-1]])
+    z_g = _zscan_grid(r16, ncy, ncx, dev)
     cstart = torch.where(cu_depth == 2, z_g,
                          torch.where(cu_depth == 1, z_g // 4 * 4, 0))
     first = torch.where(cbf_any_g, cstart, r16 * r16).reshape(
@@ -587,6 +609,19 @@ def _effective_qp16(qp: int, qp_map, cbf_any_g, cu_depth, ctu: int,
         return _rep2(m, r16)
     return torch.where(cstart < rep(first), rep(prev_eff.reshape(ncy, ncx)),
                        rep(qp_map))
+
+
+@functools.lru_cache(maxsize=None)
+def _zscan_grid(r16: int, ncy: int, ncx: int, device) -> torch.Tensor:
+    """z-scan index of each 16-granule inside its CTU, [ncy*r16, ncx*r16]."""
+    return torch.as_tensor(np.tile(tables.zscan_of_raster(r16), (ncy, ncx)),
+                           device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _chroma_qp_table(device) -> torch.Tensor:
+    return torch.as_tensor(tables.CHROMA_QP_TABLE, dtype=torch.int64,
+                           device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -703,7 +738,7 @@ def _intra_fallback_luma(cur_b, recon_y, level_y, cbf_y, inter_pred, qp,
                                                     dtype=torch.int32)
         best = torch.argmin(sads, -1)
         pred_sel = preds[torch.arange(kcap, device=dev), best]
-        lvl, rr = _tq(cur_sel - pred_sel, s, qp, True, sbh_scan)
+        lvl, rr = _tq(cur_sel - pred_sel, s, qp[sel], True, sbh_scan)
         rec = (pred_sel + rr).clamp(0, 255)
         recon_y = _put_rows(recon_y, sel, ok, rec)
         level_y = _put_rows(level_y, sel, ok, lvl)
@@ -718,7 +753,8 @@ def _intra_fallback_luma(cur_b, recon_y, level_y, cbf_y, inter_pred, qp,
 def _intra_fallback_chroma(rec_blocks, orig_blocks, level_c, cbf_c, sel,
                            ok, best, cs, bh, bw, h, w, qp_c, scan, geom):
     """Chroma (DM) of one fallback round in one plane, after the inter
-    chroma pass, so its references are the final reconstruction."""
+    chroma pass, so its references are the final reconstruction (qp_c:
+    per block [nb])."""
     dev = rec_blocks.device
     plane = _unblocks(rec_blocks, h // 2, w // 2)
     cbuf = torch.nn.functional.pad(plane.to(torch.int32),
@@ -729,7 +765,7 @@ def _intra_fallback_chroma(rec_blocks, orig_blocks, level_c, cbf_c, sel,
         _gather_adi_blocks(cbuf, py, px, cs),
         _fallback_avail(bw, bh, cs, geom, dev)[sel])
     pred = intra.predict_single_mode(adi, best, cs, False)
-    lvl, rr = _tq(orig_blocks[sel] - pred, cs, qp_c, True, scan)
+    lvl, rr = _tq(orig_blocks[sel] - pred, cs, qp_c[sel], True, scan)
     rec = (pred + rr).clamp(0, 255)
     return (_put_rows(rec_blocks, sel, ok, rec),
             _put_rows(level_c, sel, ok, lvl),
@@ -757,7 +793,7 @@ def _intra_pref_count(cur, sad_me, cand_count, qpt, ctu: int):
 
 
 def _split8(cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
-            cbf_y, is_intra, dil, inv16, qpt, lam, sign_hiding):
+            cbf_y, is_intra, dil, inv16, qp_t, lam_t, sign_hiding):
     """8x8 inter CUs: 16x16 blocks with divergent motion re-code as four
     8x8 CUs with their own MVs (+-3 integer pel around the CU's MV,
     keeping its subpel phase) and 8x8 TBs, when the RD with the split's
@@ -805,18 +841,20 @@ def _split8(cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
 
     sbh8 = tuple(tables.scan_order(8, tables.SCAN_DIAG)) \
         if sign_hiding else None
-    lvl8, rr8 = _tq(cur8 - pred8, 8, qpt, False, sbh8)
+    qp_q = torch.repeat_interleave(qp_t[bsel], 4)
+    lam_q = torch.repeat_interleave(lam_t[bsel], 4)
+    lvl8, rr8 = _tq(cur8 - pred8, 8, qp_q, False, sbh8)
     rec8 = (pred8 + rr8).clamp(0, 255)
-    lvl8, rec8 = _rd_zero(lvl8, rec8, pred8, cur8, lam, qp=qpt)
+    lvl8, rec8 = _rd_zero(lvl8, rec8, pred8, cur8, lam_q, qp=qp_q)
     rec_nxn = asm8(rec8)
     lvl_nxn = asm8(lvl8)
     ssd_n = _ssd(rec_nxn, cur_b[bsel])
     mvd8 = mv8 - mv16_q
     cu_bits = 3.0 + torch.where((mvd8 == 0).all(-1), 2.0,
                                 rdbits.mvd_bits(mvd8) + 4.0)
-    rb_q = rdbits.residual_bits(lvl8, 8, qp=qpt)
+    rb_q = rdbits.residual_bits(lvl8, 8, qp=qp_q)
     bits16 = f32.row_sum((cu_bits + rb_q).reshape(-1, 4)) + 1.0
-    cost_nxn = f32.fma(lam, bits16, ssd_n)
+    cost_nxn = f32.fma(lam_t[bsel], bits16, ssd_n)
     diverged = (mvd8 != 0).any(-1).reshape(-1, 4).any(-1)
     take = okb & diverged & (cost_nxn < cost16[bsel])
     take4 = torch.repeat_interleave(take, 4)
@@ -840,12 +878,14 @@ def _chroma_planes(ref_u, ref_v):
         .contiguous()
 
 
-def _code_chroma(u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c: int,
+def _code_chroma(u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c,
                  lam_cs, cs: int, bh: int, bw: int, sbh_scan_c,
                  sign_hiding: bool, inv16):
     """Chroma coding at the final MVs: one 16x16 chroma TB where the luma
     TB is 32-wide, else four 8x8 TBs; both planes' MC windows come from
-    ONE plane-indexed gather.  Returns per-plane (levels, recon, cbf)."""
+    ONE plane-indexed gather.  qp_c, lam_cs: per block [nb]; a 16x16 TB
+    takes its 2x2 group's top-left block's.  Returns per-plane (levels,
+    recon, cbf)."""
     dev = u32.device
     nb = bh * bw
     cpad = me.REF_PAD // 2
@@ -863,6 +903,8 @@ def _code_chroma(u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c: int,
         ig = inv16.reshape(bh, bw)
         inv16g = (ig[::2, ::2] & ig[1::2, 1::2]).reshape(-1)
     ch16 = _rep2(chroma16)
+    qp_cg = qp_c.reshape(g2h, 2, g2w, 2)[:, 0, :, 0].reshape(-1)
+    lam_cg = lam_cs.reshape(g2h, 2, g2w, 2)[:, 0, :, 0].reshape(-1)
 
     def asm(t):
         return t.reshape(g2h, 2, g2w, 2, cs, cs).permute(0, 2, 1, 4, 3, 5) \
@@ -883,10 +925,10 @@ def _code_chroma(u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c: int,
                               qp=qp_c)
         pred16 = asm(cpred)
         orig16 = asm(cb)
-        lvl16c, rr16c = _tq(orig16 - pred16, 2 * cs, qp_c, False, scan16)
+        lvl16c, rr16c = _tq(orig16 - pred16, 2 * cs, qp_cg, False, scan16)
         rec16c = (pred16 + rr16c).clamp(0, 255)
-        lvl16c, rec16c = _rd_zero(lvl16c, rec16c, pred16, orig16, lam_cs,
-                                  inv=inv16g, qp=qp_c)
+        lvl16c, rec16c = _rd_zero(lvl16c, rec16c, pred16, orig16, lam_cg,
+                                  inv=inv16g, qp=qp_cg)
         cbf16c = (lvl16c != 0).any(-1).any(-1)
         sel16 = ch16.reshape(-1)[:, None, None]
         new_lvl = torch.where(sel16, tiles(lvl16c), lvl8)
@@ -899,11 +941,12 @@ def _code_chroma(u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c: int,
 
 
 def _split8_chroma(u32, v32, cplanes, nxn16, mv8_pu, pos_y, pos_x, lvl_c,
-                   rec_c, cbf_c, qp_c: int, lam_cs, cs: int, bh: int,
+                   rec_c, cbf_c, qp_c, lam_cs, cs: int, bh: int,
                    bw: int, sign_hiding: bool):
     """Chroma of the 8x8 split CUs: each sub-CU's 4x4 chroma TB, MC'd at
-    its own MV (compacted to _NXN_CAP blocks), overwrites the TB8 result.
-    Returns (lvl_c, rec_c, cbf_c, per-8 chroma cbfs [2, 4nb])."""
+    its own MV (compacted to _NXN_CAP blocks), overwrites the TB8 result
+    (qp_c, lam_cs: per block [nb]).  Returns (lvl_c, rec_c, cbf_c,
+    per-8 chroma cbfs [2, 4nb])."""
     nb = bh * bw
     dev = u32.device
     capb = min(_NXN_CAP, nb)
@@ -938,9 +981,11 @@ def _split8_chroma(u32, v32, cplanes, nxn16, mv8_pu, pos_y, pos_x, lvl_c,
     orig4 = torch.cat([quads(_blocks(p, cs)[bsel]) for p in (u32, v32)])
     scan4 = tuple(tables.scan_order(4, tables.SCAN_DIAG)) \
         if sign_hiding else None
-    lvl4, rr4 = _tq(orig4 - pn, 4, qp_c, False, scan4)
+    qpc_sel = torch.repeat_interleave(qp_c[bsel], 4).repeat(2)
+    lamc_sel = torch.repeat_interleave(lam_cs[bsel], 4).repeat(2)
+    lvl4, rr4 = _tq(orig4 - pn, 4, qpc_sel, False, scan4)
     rec4 = (pn + rr4).clamp(0, 255)
-    lvl4, rec4 = _rd_zero(lvl4, rec4, pn, orig4, lam_cs, qp=qp_c)
+    lvl4, rec4 = _rd_zero(lvl4, rec4, pn, orig4, lamc_sel, qp=qpc_sel)
     cbf4 = (lvl4 != 0).any(-1).any(-1)                 # [2*4capb]
     ok4 = torch.repeat_interleave(okb, 4)
     cbf8c = []
@@ -971,14 +1016,14 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                    **unsupported) -> dict:
     """Encode one P frame against one reference.  y/u/v: uint8/int32
     CTU-padded planes; ref_*: int32 reconstructed (deblocked, SAO'd)
-    reference planes of the same shapes.  Returns a dict of tensors
-    (recon planes, coefficient planes, mv, cbf, `packed`,
-    `packed_full`)."""
+    reference planes of the same shapes; qp: the slice QP; qp_map: the
+    per-CTU QPs [ctus_y, ctus_x] (a tensor; None = the slice QP
+    everywhere).  Returns a dict of tensors (recon planes, coefficient
+    planes, mv, cbf, `packed`, `packed_full`)."""
     if fallback_serial:
         raise NotImplementedError("serial intra-fallback pass")
-    if qp_map is not None or wpp_substreams or scaling_lists:
-        raise NotImplementedError("per-CTU QP / WPP substreams / scaling "
-                                  "lists")
+    if scaling_lists:
+        raise NotImplementedError("scaling lists")
     if unsupported:
         raise NotImplementedError(f"options {sorted(unsupported)}")
     h, w = y.shape
@@ -990,9 +1035,19 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     qp = int(qp)
     qp_c = int(tables.CHROMA_QP_TABLE[min(max(qp + chroma_qp_offset, 0),
                                           57)])
-    qpt = torch.tensor(qp, device=dev)
+    # slice-QP lambdas: ME, the intra-preference count and SAO
+    qpt = torch.full((), qp, dtype=torch.int64, device=dev)
     lam = rdbits.rd_lambda_f32(qpt, False)
-    lam_c = rdbits.rd_lambda_f32(torch.tensor(qp_c, device=dev), False)
+    lam_c = rdbits.rd_lambda_f32(torch.full_like(qpt, qp_c), False)
+    # per-16-block QPs and lambdas of every RD decision
+    ncy, ncx = h // ctu, w // ctu
+    qp_map = torch.full((ncy, ncx), qp, dtype=torch.int64, device=dev) \
+        if qp_map is None else torch.as_tensor(qp_map, dtype=torch.int64,
+                                               device=dev)
+    qp_t = _rep2(qp_map, ctu // s).reshape(-1)
+    qp_ct = _chroma_qp_table(dev)[(qp_t + chroma_qp_offset).clamp(0, 57)]
+    lam_t = rdbits.rd_lambda_f32(qp_t, False)
+    lam_ct = rdbits.rd_lambda_f32(qp_ct, False)
     sbh_scan = tuple(tables.scan_order(s, tables.SCAN_DIAG)) \
         if sign_hiding else None
     sbh_scan_c = tuple(tables.scan_order(cs, tables.SCAN_DIAG)) \
@@ -1047,7 +1102,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
         for _ in range(merge_rounds):
             mv_flat, level_y, recon_y, pred_sel, cost16, carry = \
                 _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_me, pred,
-                               qpt, lam, s, sbh_scan,
+                               qp_t, lam_t, s, sbh_scan,
                                merge_candidate_fields(mv), inv=inv16,
                                carry_in=carry)
             mv = mv_flat.reshape(bh, bw, 2)
@@ -1061,8 +1116,8 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
         with record_function("p.fallback"):
             (recon_y, level_y, cbf_y, is_intra, intra_modes, cand_count,
              fb_rounds) = _intra_fallback_luma(
-                cur_b, recon_y, level_y, cbf_y, pred_sel, qpt, s, bh, bw, h,
-                w, sbh_scan, fallback_rounds, inv16, geom_l)
+                cur_b, recon_y, level_y, cbf_y, pred_sel, qp_t, s, bh, bw,
+                h, w, sbh_scan, fallback_rounds, inv16, geom_l)
         with record_function("p.intra_pref"):
             cand_count = torch.maximum(
                 cand_count, _intra_pref_count(cur, sad_me, cand_count, qpt,
@@ -1078,12 +1133,13 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
         with record_function("p.split8"):
             nxn16, mv8_pu, cbf8q, level_y, recon_y, cbf_y, cost16 = _split8(
                 cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
-                cbf_y, is_intra, dil, inv16, qpt, lam, sign_hiding)
+                cbf_y, is_intra, dil, inv16, qp_t, lam_t, sign_hiding)
 
     with record_function("p.quadtree"):
         mv, level_y, recon_y, cbf_y, cu_depth, tr_depth, chroma16 = \
             quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y,
-                                 cost16, dil.reshape(-1) | nxn16, qpt, lam,
+                                 cost16, dil.reshape(-1) | nxn16, qp_t,
+                                 lam_t,
                                  bh, bw, sign_hiding, inv=inv16, coded=coded,
                                  ref_pad=ref_pad if quadtree_majority
                                  else None)
@@ -1092,17 +1148,17 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
             .to(torch.int32)
     mv_f = mv.reshape(-1, 2)
 
-    lam_cs = lam_c * chroma_rd_scale
+    lam_cs = lam_ct * chroma_rd_scale
     with record_function("p.chroma"):
         cplanes = _chroma_planes(ref_u, ref_v)
         lvl_c, rec_c, cbf_c = _code_chroma(
-            u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c, lam_cs,
+            u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_ct, lam_cs,
             cs, bh, bw, sbh_scan_c, sign_hiding, inv16)
         cbf8c = [torch.zeros((4 * nb,), dtype=torch.bool, device=dev)] * 2
         if inter_nxn:
             lvl_c, rec_c, cbf_c, cbf8c = _split8_chroma(
                 u32, v32, cplanes, nxn16, mv8_pu, pos_y, pos_x, lvl_c,
-                rec_c, cbf_c, qp_c, lam_cs, cs, bh, bw, sign_hiding)
+                rec_c, cbf_c, qp_ct, lam_cs, cs, bh, bw, sign_hiding)
 
     if intra_fallback:
         # per round, so a later round's references read the chroma the
@@ -1113,7 +1169,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                 for p in range(2):
                     rec_c[p], lvl_c[p], cbf_c[p] = _intra_fallback_chroma(
                         rec_c[p], orig_c[p], lvl_c[p], cbf_c[p], sel, ok,
-                        best, cs, bh, bw, h, w, qp_c, sbh_scan_c, geom_c)
+                        best, cs, bh, bw, h, w, qp_ct, sbh_scan_c, geom_c)
 
     dist16 = (recon_y - cur_b).abs().sum() // nb
     out_y = _unblocks(recon_y, h, w)
@@ -1135,11 +1191,8 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
 
     if deblocking:
         with record_function("p.deblock"):
-            ncy, ncx = h // ctu, w // ctu
-            qp_map = torch.full((ncy, ncx), qp, dtype=torch.int64,
-                                device=dev)
             qp_g16 = _effective_qp16(qp, qp_map, cbf_y | cbf_c[0] | cbf_c[1],
-                                     cu_depth, ctu, s)
+                                     cu_depth, ctu, s, wpp_substreams)
             ii = is_intra.reshape(bh, bw) if intra_fallback else None
             tb2 = (tr_depth == 0) & (cu_depth == 1) | (cu_depth == 0)
             bs_v, bs_h = inter_boundary_strength(
@@ -1221,9 +1274,11 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     return out
 
 
-def encode_p_chunk(ys, us, vs, ref_y, ref_u, ref_v, qp, **flags) -> dict:
+def encode_p_chunk(ys, us, vs, ref_y, ref_u, ref_v, qp, qp_maps=None,
+                   **flags) -> dict:
     """K consecutive P frames, each predicted from the previous one's
-    reconstruction.  ys uint8/int32 [K, H, W]; qp int or K ints.
+    reconstruction.  ys uint8/int32 [K, H, W]; qp int or K ints; qp_maps
+    None or a tensor of K per-CTU QP maps [K, ctus_y, ctus_x].
     Returns dict(recon_* of the last frame, packed [K, L],
     packed_full [K, L2], coeff_* [K, ...])."""
     k = ys.shape[0]
@@ -1231,7 +1286,9 @@ def encode_p_chunk(ys, us, vs, ref_y, ref_u, ref_v, qp, **flags) -> dict:
     ref = (ref_y, ref_u, ref_v)
     per = []
     for j in range(k):
-        out = encode_p_frame(ys[j], us[j], vs[j], *ref, qp=qps[j], **flags)
+        out = encode_p_frame(ys[j], us[j], vs[j], *ref, qp=qps[j],
+                             qp_map=None if qp_maps is None else qp_maps[j],
+                             **flags)
         ref = (out["recon_y"], out["recon_u"], out["recon_v"])
         per.append(out)
     res = dict(recon_y=ref[0], recon_u=ref[1], recon_v=ref[2])
@@ -1241,7 +1298,8 @@ def encode_p_chunk(ys, us, vs, ref_y, ref_u, ref_v, qp, **flags) -> dict:
 
 
 def encode_p_chunk_packed(buf, ref_y, ref_u, ref_v, *, k: int, vis_h: int,
-                          vis_w: int, ctu: int, qp, **flags) -> dict:
+                          vis_w: int, ctu: int, qp, qp_maps=None,
+                          **flags) -> dict:
     """encode_p_chunk behind ONE host->device buffer: the K frames' raw
     (unpadded) Y|U|V planes raveled into a uint8 vector; padding to the
     CTU multiple (edge replication) happens on the device."""
@@ -1257,4 +1315,5 @@ def encode_p_chunk_packed(buf, ref_y, ref_u, ref_v, *, k: int, vis_h: int,
         return p.index_select(1, rows).index_select(2, cols)
     return encode_p_chunk(pad(ys, ctu), pad(us, ctu // 2),
                           pad(vs, ctu // 2), ref_y, ref_u, ref_v, qp=qp,
-                          vis_h=vis_h, vis_w=vis_w, ctu=ctu, **flags)
+                          qp_maps=qp_maps, vis_h=vis_h, vis_w=vis_w,
+                          ctu=ctu, **flags)

@@ -195,7 +195,12 @@ def rd_lambda_f32(qp: torch.Tensor, slice_type_i: bool) -> torch.Tensor:
     the reference computes it on the device (XLA divides by the constant
     3.0 as a multiply by its float32 reciprocal)."""
     qp_factor = 0.57 if slice_type_i else 0.4624 * 0.95
-    third = torch.tensor(1.0 / 3.0, dtype=torch.float32, device=qp.device)
-    y = (qp.to(torch.int32) - 12).to(torch.float32) * third
-    return torch.tensor(qp_factor, dtype=torch.float32,
-                        device=qp.device) * f32.exp2(y)
+    y = (qp.to(torch.int32) - 12).to(torch.float32) \
+        * _f32_const(1.0 / 3.0, qp.device)
+    return _f32_const(qp_factor, qp.device) * f32.exp2(y)
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_const(value: float, device) -> torch.Tensor:
+    """A float32 constant on `device`, uploaded once."""
+    return torch.tensor(value, dtype=torch.float32, device=device)

@@ -2,21 +2,25 @@
 
     python -m homerhevc_torch.profile_main
 
-Encodes 1280x720 IPPP at QP32 in the default configuration (rd=FAST,
-frames_per_launch=4; the main path of chip_smoke.py) from seeded
-synthetic video whose content fires the rd=FAST tools, with one encoder:
-the I frame (wall time only: its wavefront launches millions of
-operations, more than the profiler's post-processing can digest in a
-run), a first P chunk as warm-up, then a P chunk through
-encode_async/flush under torch.profiler.  Prints one JSON line per
-window: its wall time and, for the P window, the share of it in which
-the device ran work, the device operations launched per frame, the host
-and device time of each encoder stage (the "p.*" record_function ranges:
-p.me, p.merge, p.fallback, p.intra_pref, p.split8, p.quadtree, p.chroma,
+Encodes 1280x720 IPPP in the default configuration (rd=FAST,
+frames_per_launch=4) from seeded synthetic video whose content fires the
+rd=FAST tools, with two encoders: at fixed QP32 (the main path of
+chip_smoke.py) and under CBR at 1250 kbps and 25 fps (per-CTU QP with
+cu_qp_delta; its phase 6).  Each encodes its I frame (wall time only:
+its wavefront launches millions of operations, more than the profiler's
+post-processing can digest in a run) and a first P chunk as warm-up;
+then the two encode P chunks in turns, each timed by wall clock (P fps
+of both from one stretch of the run); then, per encoder, a P chunk
+through encode_async/flush under torch.profiler.  Prints one JSON line
+per window, tagged with its configuration: its wall time and, for the
+profiled P window, the share of it in which the device ran work, the
+device operations launched per frame, the host and device time of each
+encoder stage (the "p.*" record_function ranges: p.me, p.merge,
+p.fallback, p.intra_pref, p.split8, p.quadtree, p.chroma,
 p.fallback_chroma, p.deblock, p.sao, p.pack) and the kernels with the
 most device time.  A last pass over one more P chunk counts the
-host<->device synchronisations by source line (torch.cuda sync debug
-mode).  Needs a CUDA device.
+host<->device synchronisations, in all and by source line (torch.cuda
+sync debug mode).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from homerhevc_torch.api import Encoder
-from homerhevc_torch.config import EncoderConfig
+from homerhevc_torch.config import BitrateMode, EncoderConfig
 from homerhevc_torch.utils.synthetic import synthetic_video
 
 
@@ -57,9 +61,9 @@ def _busy_us(events) -> float:
     return busy
 
 
-def _sync_sites(fn) -> dict:
-    """{file:line: count} of the synchronising CUDA operations fn makes
-    (all threads), most frequent first."""
+def _sync_sites(fn) -> tuple:
+    """(count, {file:line: count} of the 40 most frequent sites) of the
+    synchronising CUDA operations fn makes (all threads)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -71,7 +75,7 @@ def _sync_sites(fn) -> dict:
     sites = collections.Counter(
         f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
         if "synchroniz" in str(w.message))
-    return dict(sites.most_common(40))
+    return sum(sites.values()), dict(sites.most_common(40))
 
 
 def _wall(name: str, fn) -> dict:
@@ -119,38 +123,66 @@ def _window(name: str, fn, n_frames: int):
 
 
 P_FRAMES = 4
+TURNS = 4            # timed P chunks per configuration, taken in turns
+
+
+def _encoder(cfg, frames, emit):
+    """An encoder past its I frame (timed) and one warm-up P chunk.
+    Returns (coded frames, a function that encodes its next P chunk
+    through encode_async/flush)."""
+    enc = Encoder(cfg)
+    out = []
+    emit(_wall("i_frame", lambda: out.extend(enc.encode_async(*frames[0]))))
+    nxt = [1]
+
+    def chunk():
+        for f in frames[nxt[0]:nxt[0] + P_FRAMES]:
+            out.extend(enc.encode_async(*f))
+        out.extend(enc.flush())
+        nxt[0] += P_FRAMES
+    chunk()                              # warm-up: allocator, libraries
+    return out, chunk
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_main: CUDA is not available")
-    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100)
-    frames = synthetic_video(1 + 3 * P_FRAMES, cfg.height, cfg.width,
-                             plants=64, diverge=128, quads=64)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+    size = dict(width=1280, height=720, intra_period=100)
+    configs = {"qp32": EncoderConfig(qp=32, **size),
+               "cbr1250": EncoderConfig(bitrate_mode=BitrateMode.CBR,
+                                        bitrate=1250, frame_rate=25,
+                                        **size)}
+    n = 1 + (3 + TURNS) * P_FRAMES
+    frames = synthetic_video(n, 720, 1280, plants=64, diverge=128, quads=64)
 
-    def emit(res):
-        print(json.dumps(dict(res, card=card)), flush=True)
-
-    enc = Encoder(cfg)
-    out = []
-    emit(_wall("i_frame", lambda: out.extend(enc.encode_async(*frames[0]))))
-
-    def p_chunk(j):
-        def run():
-            for f in frames[1 + j * P_FRAMES:1 + (j + 1) * P_FRAMES]:
-                out.extend(enc.encode_async(*f))
-            out.extend(enc.flush())
-        return run
-    p_chunk(0)()                         # warm-up: allocator, libraries
-    emit(_window("p_frames", p_chunk(1), P_FRAMES))
-    syncs = _sync_sites(p_chunk(2))
-    emit(dict(window="sync_sites", frames=P_FRAMES, sites=syncs))
-    assert len(out) == 1 + 3 * P_FRAMES, len(out)
-    assert not any(f._is_idr for f in out[1:]), "unexpected IDR restart"
+    def emitter(label):
+        return lambda res: print(
+            json.dumps(dict(res, config=label, card=card)), flush=True)
+    runs = {c: _encoder(cfg, frames, emitter(c))
+            for c, cfg in configs.items()}
+    # P chunks timed in turns (a b b a ...): the host's speed drifts
+    # within a run, and this alternation cancels a linear drift
+    a, b = configs
+    secs = {c: [] for c in configs}
+    for c in [a, b, b, a] * (TURNS // 2):
+        secs[c].append(_wall("p_chunk", runs[c][1])["wall_ms"] / 1e3)
+    for c, (out, chunk) in runs.items():
+        emit = emitter(c)
+        emit(dict(window="p_chunks_in_turns", frames=P_FRAMES,
+                  chunk_s=secs[c],
+                  p_fps=P_FRAMES * len(secs[c]) / sum(secs[c])))
+        emit(_window("p_frames", chunk, P_FRAMES))
+        total, sites = _sync_sites(chunk)
+        emit(dict(window="sync_sites", frames=P_FRAMES, syncs=total,
+                  sites=sites))
+        assert len(out) == n, len(out)
+        assert not any(f._is_idr for f in out[1:]), "unexpected IDR restart"
+        emit(dict(window="frames", slice_qp=[f._qp for f in out],
+                  bits=[f.bits for f in out]))
 
 
 if __name__ == "__main__":

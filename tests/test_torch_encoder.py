@@ -158,10 +158,9 @@ def test_encoder_runs_on_cuda_unless_told(monkeypatch):
 
 def test_configs_outside_the_port_raise():
     for kw in [dict(rd_mode=RDMode.RD_FULL), dict(num_ref_frames=2),
-               dict(bitrate_mode=BitrateMode.CBR), dict(adaptive_qp=True),
-               dict(wpp_substreams=True), dict(tile_cols=2),
-               dict(scaling_lists=True), dict(num_chips=2),
-               dict(intra_period=1)]:
+               dict(bitrate_mode=BitrateMode.VBR, num_ref_frames=2),
+               dict(tile_cols=2), dict(scaling_lists=True),
+               dict(num_chips=2), dict(intra_period=1)]:
         args = dict(SLICE, rd_mode=RDMode.RD_ULTRAFAST)
         args.update(kw)
         with pytest.raises(NotImplementedError):
