@@ -6,7 +6,8 @@ Phases (any failure raises and exits non-zero):
   1. build the CUDA kernels (nvcc, sm_90a) and the native entropy library
      from the sources in this checkout;
   2. hold every kernel against its plain PyTorch version on the card,
-     bit for bit, at the main path's shapes and around them: clamped
+     bit for bit, at the shapes of the paths of phases 5 and 7 (the
+     gathers' stacks of R = 1, 2 and 4 planes) and around them: clamped
      origins and plane index, outputs that are not a multiple of 4 words
      or of a CTA's tile, window sizes and block sizes that take the
      kernels' run-time instantiations, planted slab-search ties (the
@@ -14,29 +15,40 @@ Phases (any failure raises and exits non-zero):
      their real range;
   3. encode 176x144 on cuda and on cpu, at rd=ULTRAFAST (1 I + 4 P), at
      rd=FAST (six frames with isolated new blocks, divergent motion and
-     a scene cut that restarts the GOP), under CBR (1 I + 8 P, per-CTU
-     QP with cu_qp_delta) and under VBR with WPP substreams (1 I + 4 P):
-     the Annex-B bytes and the reconstructions must be identical;
+     a scene cut that restarts the GOP), at rd=FULL with two reference
+     pictures (eight such frames with a flicker, the first P after each
+     IDR masked to one reference), under CBR (1 I + 8 P, per-CTU QP with
+     cu_qp_delta) and under VBR with WPP substreams (1 I + 4 P): the
+     Annex-B bytes and the reconstructions must be identical;
   4. the rd=ULTRAFAST path: 1280x720 IPPP at QP32, 1 I + 4 P frames
      through Encoder.encode_async/flush: every kernel launched, at the
      path's shapes;
-  5. the main path, the default configuration: 1280x720 IPPP at QP32,
-     rd=FAST, 1 I + 8 P frames through Encoder.encode_async/flush, on
-     video whose content fires the P frames' intra fallback and 8x8
-     split and the I frame's NxN; every kernel must have been launched
-     at every call site of the path; prints the tools' counts per frame,
-     fps, the card's name and power limit, and per kernel, on the inputs
-     one P frame of the first chunk gave it, its error, its time (median
-     and spread of 5 runs of 50), the plain version's and a PyTorch
-     call's time, and its bound;
+  5. the default configuration: 1280x720 IPPP at QP32, rd=FAST, 1 I +
+     8 P frames through Encoder.encode_async/flush, on video whose
+     content fires the P frames' intra fallback and 8x8 split and the I
+     frame's NxN; every kernel must have been launched at every call site
+     of the path; prints the tools' counts per frame and fps;
   6. the rate-controlled path, the README's console example: 1280x720
      CBR at 1250 kbps and 25 fps, rd=FAST, 1 I + 8 P frames through
      Encoder.encode_async/flush on phase 5's video: every kernel launched
      at every call site, each equal to its plain version on one CBR P
      frame's recorded inputs; prints per frame the slice QP, the per-CTU
      QP range and the bits, the achieved rate against the target, P fps
-     and the I frame's seconds.
-The last line of stdout is {"ok": true, "device": {...}}.
+     and the I frame's seconds;
+  7. this slice's path: 1280x720 IPPP at QP32, rd=FULL (the I frame's
+     top-3 full-RD mode refinement) with two reference pictures, 1 I +
+     8 P frames through Encoder.encode_async/flush on phase 5's video
+     plus a flicker on odd frames over the left half: every kernel
+     launched at every call site (ME on both references: 4 slab searches
+     per P frame), each equal to its plain version on one P frame's
+     recorded inputs; prints the share of ref 1 per frame, P fps and the
+     I frame's seconds.
+The line before the last two is {"kernels": [...]}: per kernel, on one
+phase-7 P frame's inputs, its launches over the phase, error, time
+(median and spread of 5 runs of 50), the plain version's and a PyTorch
+call's time and its bound, and the same for phase 5 (`rd_fast_path`);
+then the card's name and power limit; the last line of stdout is
+{"ok": true, "device": {...}}.
 """
 import json
 import subprocess
@@ -137,28 +149,37 @@ def phase_build():
 # ---------------------------------------------------------------- phase 2
 def main_path_calls(cfg):
     """The shapes of the kernel calls one P frame makes at this config:
-    name -> list of (n, size, plane shape) or (h, w, bs, ry, rx)."""
+    name -> list of (n, size, plane shape) or (h, w, bs, ry, rx).  With
+    two references ME runs on each, and every luma MC and split8 window
+    reads a stack of the R = 2 luma planes, chroma MC one of R = 4
+    (U0, U1, V0, V1).  rd=FULL's P frame is rd=FAST's."""
     h, w = cfg.padded_height, cfg.padded_width
     n = (h // 16) * (w // 16)
     pad = 144                                   # me.REF_PAD
     half = (h // 2 + 2 * 78, w // 2 + 2 * 78)   # coarse refine pad 6+72
     full = (h + 2 * pad, w + 2 * pad)
     chroma = (h // 2 + pad, w // 2 + pad)
+    r = cfg.num_ref_frames
+    # luma MC after ME: one plane, or the stack of both references
+    mc_name, mc_full = (("gather_windows", full) if r == 1 else
+                        ("gather_windows_ref", (2,) + full))
     calls = dict(
-        gather_windows=[(n, 20, half), (2 * n, 22, full), (n, 25, full),
-                        (2 * n, 23, full)],
-        gather_windows_ref=[(2 * n, 11, (2,) + chroma)],
-        slab_search=[(h // 8, w // 8, 2, 8, 16), (h // 2, w // 2, 8, 3, 3)])
-    if cfg.rd_mode == RDMode.RD_FAST:
+        gather_windows=[(n, 20, half), (2 * n, 22, full), (n, 25, full)] * r,
+        gather_windows_ref=[(2 * n, 11, (2 * r,) + chroma)],
+        slab_search=[(h // 8, w // 8, 2, 8, 16),
+                     (h // 2, w // 2, 8, 3, 3)] * r)
+    rounds = 1 if cfg.rd_mode == RDMode.RD_ULTRAFAST else 2
+    calls[mc_name] += [(2 * n, 23, mc_full)] * rounds   # merge left/top
+    if cfg.rd_mode != RDMode.RD_ULTRAFAST:
         k = min(512, n)                         # fallback and split caps
         calls["gather_windows"] += (
-            [(2 * n, 23, full)]                 # merge round 2: left/top
-            + [(k, 33, (1 + h + 16, 1 + w + 16))] * 2   # fallback ADI x2
-            + [(4 * k, 14, full), (4 * k, 15, full)]    # split8 refine, MC
-            + [((h // 32) * (w // 32), 39, full),       # quadtree majority
-               ((h // 64) * (w // 64), 71, full)]
+            [(k, 33, (1 + h + 16, 1 + w + 16))] * 2     # fallback ADI x2
             + [(k, 17, (1 + h // 2 + 8, 1 + w // 2 + 8))] * 4)  # fb chroma
-        calls["gather_windows_ref"].append((8 * k, 7, (2,) + chroma))
+        calls[mc_name] += [
+            (4 * k, 14, mc_full), (4 * k, 15, mc_full),  # split8 refine, MC
+            ((h // 32) * (w // 32), 39, mc_full),        # quadtree majority
+            ((h // 64) * (w // 64), 71, mc_full)]
+        calls["gather_windows_ref"].append((8 * k, 7, (2 * r,) + chroma))
     return calls
 
 
@@ -243,12 +264,16 @@ def gather_cases(calls):
     return cases
 
 
-def phase_compare(cfg):
-    """Edge cases at the main path's shapes and around them: clamped
-    origins and plane index, planted ties, ragged tiles and tails,
-    sizes and radii off the main path."""
+def phase_compare(cfgs):
+    """Edge cases at the shapes of the paths of `cfgs` and around them:
+    clamped origins and plane index, planted ties, ragged tiles and
+    tails, sizes and radii off the main path."""
     rng = np.random.default_rng(0)
-    calls = main_path_calls(cfg)
+    calls = {}
+    for cfg in cfgs:
+        for name, v in main_path_calls(cfg).items():
+            calls.setdefault(name, [])
+            calls[name] += [c for c in v if c not in calls[name]]
     for name, n, size, shape in gather_cases(calls):
         plane, by, bx = gather_args(rng, n, size, shape)
         if name == "gather_windows":
@@ -295,12 +320,18 @@ def fast_video(n, h, w):
 def phase_cpu_parity():
     small = dict(width=176, height=144, qp=32, intra_period=100)
     rc_video = synthetic_video(9, 144, 176, plants=4, diverge=32)
+    cut_video = synthetic_video(6, 144, 176, plants=8, diverge=32, quads=32,
+                                scene_cut=4)
     for cfg, frames, sync in (
             (EncoderConfig(rd_mode=RDMode.RD_ULTRAFAST, **small),
              synthetic_video(5, 144, 176), False),
-            (EncoderConfig(**small),
-             synthetic_video(6, 144, 176, plants=8, diverge=32, quads=32,
-                             scene_cut=4), True),
+            (EncoderConfig(**small), cut_video, True),
+            # two references: the first P after each IDR has one; the
+            # eighth frame predicts from both pictures of the restarted GOP
+            (EncoderConfig(rd_mode=RDMode.RD_FULL, num_ref_frames=2,
+                           **small),
+             synthetic_video(8, 144, 176, plants=8, diverge=32, quads=32,
+                             scene_cut=4, flicker=12), True),
             (EncoderConfig(bitrate_mode=BitrateMode.CBR, bitrate=150,
                            **small), rc_video, False),
             (EncoderConfig(bitrate_mode=BitrateMode.VBR, bitrate=150,
@@ -309,6 +340,8 @@ def phase_cpu_parity():
         name = cfg.rd_mode.name if cfg.bitrate_mode == BitrateMode.FIXED_QP \
             else cfg.bitrate_mode.name + ("+WPP" if cfg.wpp_substreams
                                           else "")
+        if cfg.num_ref_frames == 2:
+            name += "+2ref"
         res = {}
         for dev in ("cuda", "cpu"):
             enc = Encoder(cfg, device=dev)
@@ -317,7 +350,8 @@ def phase_cpu_parity():
             out = ([enc.encode(*f) for f in frames] if sync
                    else encode_all(enc, frames))
             res[dev] = ([f.nalus for f in out], [f._is_idr for f in out],
-                        [r.cpu().numpy() for r in enc._ref],
+                        [r.cpu().numpy() for r in enc._ref
+                         + (enc._ref2 or ())],
                         [f._qp for f in out])
         assert len(res["cuda"][0]) == len(frames)
         assert res["cuda"][0] == res["cpu"][0], \
@@ -326,8 +360,8 @@ def phase_cpu_parity():
             assert np.array_equal(a, b), \
                 f"{name}: cuda/cpu reconstructions differ"
         if sync:
-            assert res["cuda"][1] == [True, False, False, False, False,
-                                      True], res["cuda"][1]
+            assert res["cuda"][1] == [i in (0, 5) for i in
+                                      range(len(frames))], res["cuda"][1]
         if cfg.bitrate_mode == BitrateMode.CBR:
             assert len(set(res["cuda"][3][1:])) >= 2, \
                 f"CBR kept one P-frame QP: {res['cuda'][3]}"
@@ -478,12 +512,7 @@ def phase_cbr(n_p=8):
                         frame_rate=25)
     counts, per_frame, recs, out, i_s, p_fps = drive(
         cfg, fast_video(1 + n_p, cfg.height, cfg.width), "cbr")
-    err = 0
-    for name, calls in per_frame.items():
-        for args in calls:
-            err = max(err, same(getattr(kernels, name)(*args),
-                                plain_of(name, args),
-                                f"{name} on CBR inputs"))
+    err = hold_against_plain(per_frame, "CBR inputs")
     for i, (r, f) in enumerate(zip(recs, out)):
         log(f"[cbr] frame {i} {'I' if f._is_idr else 'P'}: slice QP "
             f"{r.slice_qp}, CTU QP {int(r.qp_map.min())}.."
@@ -497,6 +526,47 @@ def phase_cbr(n_p=8):
         f"target; P fps {p_fps:.3f}; I frame {i_s:.3f} s; kernels equal "
         f"to their plain versions on CBR inputs (max abs err {err}); "
         f"launches {counts}")
+
+
+def phase_two_ref(n_p=8):
+    """This slice's path: rd=FULL (the I frame's top-3 full-RD mode
+    refinement) with two reference pictures at 720p, on phase 5's video
+    plus a flicker on odd frames over the left half, where the picture
+    two back is the better reference.  ME runs on both references (4
+    slab searches per P frame), and every kernel call of one P frame is
+    held against its plain version on its recorded inputs.  Returns the
+    launch counts and that P frame's calls."""
+    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
+                        rd_mode=RDMode.RD_FULL, num_ref_frames=2)
+    frames = synthetic_video(1 + n_p, cfg.height, cfg.width, plants=64,
+                             diverge=128, quads=64, flicker=20)
+    counts, per_frame, recs, out, i_s, p_fps = drive(cfg, frames, "two_ref")
+    assert counts["slab_search"] == 4 * n_p, counts
+    err = hold_against_plain(per_frame, "two-reference inputs")
+    shares = []
+    for i, (r, f) in enumerate(zip(recs, out)):
+        if f._is_idr:
+            continue
+        inter = r.pred_mode == 0
+        shares.append(float(r.ref_idx[inter].mean()) if inter.any() else 0.0)
+        log(f"[two_ref] frame {i} P: num_ref_l0 {r.num_ref_l0}, ref 1 "
+            f"share {shares[-1]:.4f} of the inter area, {f.bits} bits")
+    assert shares[0] == 0.0 and max(shares[1:]) > 0.0, shares
+    log(f"[two_ref] P fps {p_fps:.3f}; I frame (rd=FULL) {i_s:.3f} s; "
+        f"kernels equal to their plain versions on two-reference inputs "
+        f"(max abs err {err}); launches {counts}")
+    return counts, per_frame
+
+
+def hold_against_plain(per_frame, what: str) -> int:
+    """Every recorded kernel call against its plain version; returns the
+    largest difference (0, or it raises)."""
+    err = 0
+    for name, calls in per_frame.items():
+        for args in calls:
+            err = max(err, same(getattr(kernels, name)(*args),
+                                plain_of(name, args), f"{name} on {what}"))
+    return err
 
 
 def plain_of(name, args):
@@ -547,10 +617,12 @@ def kernel_report(counts, per_frame):
     difference from the plain version, the time of the frame's calls
     (kernel, plain version and, for the gathers, one PyTorch call that
     computes the same function; median and spread of 5 runs) and the
-    least time the card could take."""
+    least time the card could take, in all and per call site (`calls`:
+    the call's windows n or blocks, window size or (bs, ry, rx), plane
+    stack shape and bound)."""
     rows = []
     for name, calls in per_frame.items():
-        fns, plains, libs = [], [], []
+        fns, plains, libs, sites = [], [], [], []
         bound = by_ops = 0.0
         err = 0
         for args in calls:
@@ -563,6 +635,8 @@ def kernel_report(counts, per_frame):
                 nbytes = 4 * (cur.numel() + slab.numel()
                               + (h // bs) * (w // bs))
                 ops = 3.0 * (2 * ry + 1) * (2 * rx + 1) * h * w
+                site = dict(n=(h // bs) * (w // bs), size=[bs, ry, rx],
+                            planes=list(slab.shape))
             elif name == "gather_windows":
                 plane, by, bx, size = args
                 lib = unfold_gather(plane[None], None, by, bx, size)
@@ -571,6 +645,7 @@ def kernel_report(counts, per_frame):
                                             by, bx, size)
                           + 4 * (2 * n + n * size * size))
                 ops = 0.0
+                site = dict(n=n, size=size, planes=[1] + list(plane.shape))
             else:
                 planes, ri, by, bx, size = args
                 lib = unfold_gather(planes, ri, by, bx, size)
@@ -579,6 +654,7 @@ def kernel_report(counts, per_frame):
                                             size)
                           + 4 * (3 * n + n * size * size))
                 ops = 0.0
+                site = dict(n=n, size=size, planes=list(planes.shape))
             err = max(err, same(f(), g(), f"{name} on main-path inputs"))
             if lib is not None:
                 same(lib(), g(), f"{name}: unfold + index")
@@ -589,6 +665,7 @@ def kernel_report(counts, per_frame):
             t_ops = ops / INT32_OPS_PER_S * 1e3
             bound += max(t_bytes, t_ops)
             by_ops += t_ops - t_bytes
+            sites.append(dict(site, bound_ms=max(t_bytes, t_ops)))
 
         def frame(fs):
             return lambda: [fn() for fn in fs]
@@ -601,29 +678,42 @@ def kernel_report(counts, per_frame):
             max_abs_err=err, ms=ms, ms_spread=list(spread),
             plain_ms=plain_ms, bound_ms=bound,
             bound_by="operations" if by_ops > 0 else "bytes",
-            library_ms=library_ms))
+            library_ms=library_ms, calls=sites))
     return rows
 
 
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     phase_build()
-    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100)
-    phase_compare(cfg)
+    size = dict(width=1280, height=720, qp=32, intra_period=100)
+    phase_compare([EncoderConfig(**size),
+                   EncoderConfig(rd_mode=RDMode.RD_FULL, num_ref_frames=2,
+                                 **size)])
     phase_cpu_parity()
     phase_ultrafast()
-    counts, per_frame = phase_main()
+    fast_counts, fast_calls = phase_main()
     phase_cbr()
+    counts, per_frame = phase_two_ref()
+    # the kernels line reports this slice's path (two references,
+    # rd=FULL); each row also carries the rd=FAST path's numbers
+    fast = {r["name"]: r for r in kernel_report(fast_counts, fast_calls)}
     rows = kernel_report(counts, per_frame)
     for r in rows:
-        lib = ("none" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f}")
-        log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/P-frame "
-            f"(spread {r['ms_spread'][0]:.4f}-{r['ms_spread'][1]:.4f}, "
-            f"plain {r['plain_ms']:.4f}, library {lib}, "
-            f"bound {r['bound_ms']:.5f} {r['bound_by']}), "
-            f"{r['launches']} launches")
+        f = fast[r["name"]]
+        r["rd_fast_path"] = {k: f[k] for k in (
+            "launches", "ms", "ms_spread", "plain_ms", "bound_ms",
+            "library_ms")}
+        for label, x in (("two_ref", r), ("rd_fast", f)):
+            lib = ("none" if x["library_ms"] is None
+                   else f"{x['library_ms']:.4f}")
+            log(f"[kernel] {r['name']} ({label} path): {x['ms']:.4f} "
+                f"ms/P-frame (spread {x['ms_spread'][0]:.4f}-"
+                f"{x['ms_spread'][1]:.4f}, plain {x['plain_ms']:.4f}, "
+                f"library {lib}, bound {x['bound_ms']:.5f} "
+                f"{r['bound_by']}), {x['launches']} launches")
+    log(f"[time] phases 1-7 {time.perf_counter() - t0:.1f}s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

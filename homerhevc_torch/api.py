@@ -5,11 +5,12 @@ default) produces one packed int16 record per frame; a host worker thread
 pulls it (one device->host copy per chunk) and the native C++ library
 entropy-codes it, overlapping the device compute of the next chunk.
 
-Supported configuration: IPPP (intra_period > 1) at rd=FAST (the
-default) or rd=ULTRAFAST, one reference frame, single device; fixed QP
-or CBR/VBR rate control, per-CTU QP with cu_qp_delta (under CBR/VBR or
-adaptive_qp), WPP substreams.  Other configurations raise
-NotImplementedError.
+Supported configuration: IPPP (intra_period > 1) at every rd_mode
+(rd=FAST, the default; rd=ULTRAFAST; rd=FULL, whose I frame refines the
+top-3 intra modes by full RD), one or two reference frames, single
+device; fixed QP or CBR/VBR rate control, per-CTU QP with cu_qp_delta
+(under CBR/VBR or adaptive_qp), WPP substreams.  Tiles, scaling lists,
+all-intra chunks and more than one chip raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -50,10 +51,6 @@ def _pad_plane(p: np.ndarray, mult: int) -> np.ndarray:
 def check_supported(cfg: EncoderConfig):
     """Raise NotImplementedError for configurations outside the port."""
     bad = []
-    if cfg.rd_mode == RDMode.RD_FULL:
-        bad.append("rd_mode RD_FULL")
-    if cfg.num_ref_frames != 1:
-        bad.append("num_ref_frames=2")
     if cfg.tile_cols > 1 or cfg.tile_rows > 1 or cfg.tile_auto:
         bad.append("tiles")
     if cfg.scaling_lists:
@@ -97,6 +94,7 @@ class Encoder:
         self._poc = 0
         self._gop_poc = 0
         self._ref = None
+        self._ref2 = None      # the picture before _ref (list0 index 1)
         self._out: list[CodedFrame] = []
         self._pending: list = []
         self._inbuf: list = []
@@ -109,6 +107,7 @@ class Encoder:
         self._search_8x8 = not ultra and cfg.max_pred_depth >= 3
         self._search_nxn = not ultra and cfg.max_pred_depth >= 4
         self._tu_split = self._search_8x8 and cfg.max_intra_tr_depth >= 1
+        self._rd_refine = cfg.rd_mode == RDMode.RD_FULL
         self._worker = concurrent.futures.ThreadPoolExecutor(max_workers=1)
 
     def _p_knobs(self) -> dict:
@@ -252,11 +251,12 @@ class Encoder:
             ctu=ctu, sign_hiding=cfg.sign_hiding,
             deblocking=cfg.deblocking, sao_enabled=cfg.sao,
             search_8x8=self._search_8x8, search_nxn=self._search_nxn,
-            tu_split=self._tu_split,
+            tu_split=self._tu_split, rd_refine=self._rd_refine,
             chroma_qp_offset=cfg.chroma_qp_offset,
             vis_h=cfg.height,
             vis_w=cfg.width, true_size=cfg.code_true_size)
         self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
+        self._ref2 = None
         pend = dict(kind="i", out=out, qp=qp, poc=self._poc,
                     gop_poc=self._gop_poc, padded=yp.shape,
                     orig=(y, u, v) if compute_recon else None,
@@ -290,12 +290,24 @@ class Encoder:
                 ctu_qp_map(qps[j], _pad_plane(np.asarray(f[0], np.uint8),
                                               ctu), ctu)
                 for j, f in enumerate(frames)])
+        ref2_kw = {}
+        if cfg.num_ref_frames >= 2:
+            # list0 index 1 is the picture before self._ref; the first P
+            # after an IDR has none yet (gop_poc counts pictures since the
+            # IDR), and the mask keeps its blocks on ref 0
+            r2 = self._ref2 if self._ref2 is not None else self._ref
+            ref2_kw = dict(
+                ref2_y=r2[0], ref2_u=r2[1], ref2_v=r2[2],
+                has_ref2=self._to_dev(np.asarray(
+                    [self._gop_poc + j >= 2 for j in range(k)])))
         out = inter_frame.encode_p_chunk_packed(
             self._to_dev(buf), *self._ref, k=k, vis_h=cfg.height,
             vis_w=cfg.width, ctu=ctu, qp=qps,
             qp_maps=None if qp_maps is None else self._to_dev(qp_maps),
-            **self._p_knobs())
+            **ref2_kw, **self._p_knobs())
         self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
+        if ref2_kw:
+            self._ref2 = (out["recon2_y"], out["recon2_u"], out["recon2_v"])
         pend = dict(kind="p", out=out, qps=qps, poc=self._poc,
                     gop_poc=self._gop_poc,
                     padded=(-cfg.height % ctu + cfg.height,
@@ -406,9 +418,10 @@ class Encoder:
             "flush() before checkpointing"
         state = dict(poc=self._poc, gop_poc=self._gop_poc,
                      rc=self._rc.state_dict())
-        if self._ref is not None:
-            for n, t in zip(("ref_y", "ref_u", "ref_v"), self._ref):
-                state[n] = self._host(t).astype(np.int32)
+        for key, ref in (("ref", self._ref), ("ref2", self._ref2)):
+            if ref is not None:
+                for p, t in zip("yuv", ref):
+                    state[f"{key}_{p}"] = self._host(t).astype(np.int32)
         np.savez(path, **_flatten_ckpt(state))
 
     def load_checkpoint(self, path: str):
@@ -421,8 +434,8 @@ class Encoder:
              else int(st[k]) for k in st if k.startswith("rc.")})
         self._ref = (st["ref_y"], st["ref_u"], st["ref_v"]) \
             if "ref_y" in st else None
-        if "ref2_y" in st:
-            raise NotImplementedError("two-reference checkpoints")
+        self._ref2 = (st["ref2_y"], st["ref2_u"], st["ref2_v"]) \
+            if "ref2_y" in st else None
         self._pending.clear()
         self._out.clear()
 

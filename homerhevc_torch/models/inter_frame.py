@@ -1,18 +1,20 @@
 """Batched P-frame (inter) encoder.
 
 Port of homerhevc_tpu/models/inter_frame.py (`encode_p_frame`,
-`encode_p_chunk`, `encode_p_chunk_packed`) for one reference and one
-device, at the rd=ULTRAFAST and rd=FAST knobs of the reference's speed
-ladder, with a slice QP per frame and an optional per-CTU QP map
-(cu_qp_delta; WPP substreams reset the deblocking QP chain per CTU
-row); the serial intra-fallback pass (fallback_serial) is not ported.
+`encode_p_chunk`, `encode_p_chunk_packed`) for one or two reference
+pictures and one device, at the knobs of the reference's speed ladder
+(rd=FULL's P frame is rd=FAST's), with a slice QP per frame and an
+optional per-CTU QP map (cu_qp_delta; WPP substreams reset the
+deblocking QP chain per CTU row); the serial intra-fallback pass
+(fallback_serial) is not ported.
 
 QP and lambda are per 16-block tensors ([nb], built once per frame from
 the map) in every RD decision, except motion estimation, the
 intra-preference count and SAO, which keep the slice QP's.
 
-Stage order: motion estimation -> merge/skip RD over {left, top, own,
-global, zero} candidates (a second round re-evaluates left/top from the
+Stage order: motion estimation (on each reference, then a per-block
+reference pick) -> merge/skip RD over {left, top, own, global, zero}
+candidates (a second round re-evaluates left/top from the
 first round's winners) -> isolated intra fallback in rounds -> the
 frame's intra-preference count (scene-change restart) -> 8x8 inter
 split of divergent-motion 16x16 blocks -> 16/32/64 quadtree
@@ -146,22 +148,35 @@ def _cand_rd(cur_c, preds, qp, lam, s, sbh_scan, bits_mv, nc, n, inv=None):
 
 
 def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
-                   lam, s, sbh_scan, cand_fields, inv=None, carry_in=None):
+                   lam, s, sbh_scan, cand_fields, inv=None, carry_in=None,
+                   ref_grid=None, ref_pads=None):
     """Merge/skip RD arbitration: every candidate MV (left, top, own,
     global, zero) gets an exact prediction, a full T/Q/IQ/IT
     reconstruction and a forced-zero-residual variant; the per-block
     winner's (mv, level, recon, pred, cost) are returned with a carry.
     Given a previous round's carry, only left/top are re-evaluated and
     compete with the cached own/global/zero candidates and that round's
-    winner."""
+    winner.  With ref_grid [bh, bw] (the per-block reference) and
+    ref_pads [2, Hp, Wp], candidates are (mv, ref) pairs: left/top take
+    the neighbour's ref, global and zero ref 0, and the own candidate
+    pays its ref_idx bin; the winner's ref is carry["ref"]."""
     n = cur_b.shape[0]
     bh, bw = mv_own.shape[:2]
     h, w = bh * s, bw * s
     dev = cur_b.device
     left_f = cand_fields[0][0].reshape(-1, 2)
     lt_mv = torch.cat([left_f, cand_fields[1][0].reshape(-1, 2)], 0)
-    lt_pred = me.mc_luma_at(ref_pad, pos_y.repeat(2), pos_x.repeat(2),
-                            lt_mv, s)
+    if ref_grid is None:
+        own_ref = lt_ref = None
+        lt_pred = me.mc_luma_at(ref_pad, pos_y.repeat(2), pos_x.repeat(2),
+                                lt_mv, s)
+    else:
+        own_ref = ref_grid.reshape(-1)
+        lt_ref = torch.cat([
+            torch.cat([ref_grid[:, :1], ref_grid[:, :-1]], 1).reshape(-1),
+            torch.cat([ref_grid[:1], ref_grid[:-1]], 0).reshape(-1)])
+        lt_pred = me.mc_luma_at(ref_pads, pos_y.repeat(2), pos_x.repeat(2),
+                                lt_mv, s, ref=lt_ref)
     bits_lt = torch.full((2, n), 3.0, device=dev)
     lvl_lt, rec_lt, cost_lt = _cand_rd(cur_b.repeat(2, 1, 1), lt_pred, qp,
                                        lam, s, sbh_scan, bits_lt, 2, n,
@@ -175,19 +190,25 @@ def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
         ogz_mv = torch.cat([own, cand_fields[2][0].reshape(-1, 2),
                             torch.zeros_like(own)], 0)
         ogz_pred = torch.cat([pred_own, glob_pred, zero_pred], 0)
-        bits_ogz = torch.stack([rdbits.mvd_bits(own - left_f) + 5.0 + 0.0,
+        bits_own = rdbits.mvd_bits(own - left_f) + 5.0
+        if own_ref is not None:
+            # the own candidate pays its ref_idx bin
+            bits_own = bits_own + own_ref.to(torch.float32)
+        bits_ogz = torch.stack([bits_own,
                                 torch.full((n,), 3.0, device=dev),
                                 rdbits.mvd_bits(-left_f) + 5.0], 0)
         lvl_ogz, rec_ogz, cost_ogz = _cand_rd(
             cur_b.repeat(3, 1, 1), ogz_pred, qp, lam, s, sbh_scan, bits_ogz,
             3, n, inv=inv)
-        fixed = (ogz_mv, ogz_pred, lvl_ogz, rec_ogz, cost_ogz)
+        ogz_ref = None if own_ref is None else torch.cat(
+            [own_ref, torch.zeros_like(own_ref).repeat(2)])
+        fixed = (ogz_mv, ogz_pred, lvl_ogz, rec_ogz, cost_ogz, ogz_ref)
     else:
         fixed = carry_in["fixed"]
-        ogz_mv, ogz_pred, lvl_ogz, rec_ogz, cost_ogz = fixed
-    mvs, preds, levels, recons, costs = ([lt_mv, ogz_mv], [lt_pred, ogz_pred],
-                                         [lvl_lt, lvl_ogz], [rec_lt, rec_ogz],
-                                         [cost_lt, cost_ogz])
+        ogz_mv, ogz_pred, lvl_ogz, rec_ogz, cost_ogz, ogz_ref = fixed
+    mvs, preds, levels, recons, costs, refs = (
+        [lt_mv, ogz_mv], [lt_pred, ogz_pred], [lvl_lt, lvl_ogz],
+        [rec_lt, rec_ogz], [cost_lt, cost_ogz], [lt_ref, ogz_ref])
     if carry_in is not None:
         # the previous round's winner competes as the last candidate
         mvs.append(carry_in["mv"])
@@ -195,11 +216,13 @@ def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
         levels.append(carry_in["level"])
         recons.append(carry_in["recon"])
         costs.append(carry_in["cost"][None])
+        refs.append(carry_in["ref"])
     cost = torch.cat(costs, 0)                            # [nc, n]
     pick = torch.argmin(cost, 0) * n + torch.arange(n, device=dev)
     carry = dict(fixed=fixed, mv=torch.cat(mvs)[pick],
                  pred=torch.cat(preds)[pick], level=torch.cat(levels)[pick],
-                 recon=torch.cat(recons)[pick], cost=cost.amin(0))
+                 recon=torch.cat(recons)[pick], cost=cost.amin(0),
+                 ref=None if own_ref is None else torch.cat(refs)[pick])
     return (carry["mv"], carry["level"], carry["recon"], carry["pred"],
             carry["cost"], carry)
 
@@ -232,14 +255,17 @@ def _join_quads64(q):
 
 def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
                     elig_tile, qp, lam, bh, bw, n: int, sbh16, sbh32,
-                    inv=None, coded=None, ref_pad=None):
+                    inv=None, coded=None, ref_pad=None, ref_flat=None):
     """Fold n x n groups of 16x16 tiles into one (16n)^2 CU when the
     parent RD (32 TB / four 16 TBs / zero residual; four 32 TBs at n=4)
     beats the children.  MV-uniform groups reuse the children's
     predictions; with `ref_pad` (quadtree majority) the other groups are
     evaluated too, at their majority MV (one MC gather per group).  qp,
     lam: per tile [nb]; a group never crosses a CTU, so its tiles share
-    them."""
+    them.  With ref_flat [nb] (two references; ref_pad is then the
+    stacked [2, Hp, Wp] pad) a group of mixed references is neither
+    uniform nor eligible, and the majority MV is taken at the group's
+    first tile's reference."""
     dev = cur_b.device
     gh, gw = bh // n, bw // n
     gy = torch.arange(gh, device=dev)
@@ -254,6 +280,13 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
     o_tiles = cur_b[flat].reshape(g, n * n, 16, 16)
     mv_tiles = mv_flat[flat].reshape(g, n * n, 2)
     uniform = (mv_tiles == mv_tiles[:, :1]).all(-1).all(-1)
+    ref_uni = torch.ones_like(uniform)
+    ref_grp = None
+    if ref_flat is not None:
+        ref_tiles = ref_flat[flat].reshape(g, n * n)
+        ref_uni = (ref_tiles == ref_tiles[:, :1]).all(-1)
+        uniform = uniform & ref_uni
+        ref_grp = ref_tiles[:, 0]
     eq = (mv_tiles[:, :, None] == mv_tiles[:, None, :]).all(-1)
     maj_i = torch.argmax(eq.sum(-1), -1)
     maj_mv = mv_tiles[torch.arange(g, device=dev), maj_i]
@@ -264,7 +297,8 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
         gpy = (gy * s_big)[:, None].expand(gh, gw).reshape(-1)
         gpx = (gx * s_big)[None, :].expand(gh, gw).reshape(-1)
         pred_maj = me.mc_luma_at(ref_pad, gpy.to(torch.int32),
-                                 gpx.to(torch.int32), maj_mv, s_big)
+                                 gpx.to(torch.int32), maj_mv, s_big,
+                                 ref=ref_grp)
         pred_t = torch.where(uniform[:, None, None, None], pred_t,
                              _split_tiles(pred_maj, n))
 
@@ -324,7 +358,7 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
 
     parent_cost = torch.minimum(torch.minimum(cost_big, cost_tr1),
                                 cost_zero)
-    maj_ok = torch.ones_like(uniform) if ref_pad is not None else uniform
+    maj_ok = ref_uni if ref_pad is not None else uniform
     elig = maj_ok & ~(elig_tile[flat].reshape(g, n * n).any(-1))
     if coded is not None:
         s_big = 16 * n
@@ -384,11 +418,12 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
 
 def quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y, cost16,
                          excl, qp, lam, bh: int, bw: int, sign_hiding: bool,
-                         inv=None, coded=None, ref_pad=None):
+                         inv=None, coded=None, ref_pad=None, ref_flat=None):
     """Bottom-up CU consolidation 16 -> 32 -> 64 with TU RDO (qp, lam:
-    per tile [nb]; ref_pad: non-uniform groups at their majority MV).  Returns (mv [bh,bw,2],
-    level_y, recon_y, cbf_y [bh,bw], cu_depth, tr_depth, chroma16
-    [bh//2, bw//2])."""
+    per tile [nb]; ref_pad: non-uniform groups at their majority MV;
+    ref_flat: the per-tile reference, ref_pad then stacked).  Returns
+    (mv [bh,bw,2], level_y, recon_y, cbf_y [bh,bw], cu_depth, tr_depth,
+    chroma16 [bh//2, bw//2])."""
     dev = cur_b.device
     sbh16 = tuple(tables.scan_order(16, tables.SCAN_DIAG)) \
         if sign_hiding else None
@@ -398,14 +433,14 @@ def quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y, cost16,
     (mv_flat, level_y, recon_y, pred_sel, cost32, take32, cbf32_t, trd32,
      tidx32) = _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y,
                                cost16, excl, qp, lam, bh, bw, 2, sbh16,
-                               sbh32, inv, coded, ref_pad)
+                               sbh32, inv, coded, ref_pad, ref_flat)
     cost32_tile = torch.zeros((bh * bw,), dtype=torch.float32, device=dev)
     cost32_tile[tidx32.reshape(-1)] = torch.repeat_interleave(
         cost32 / 4.0, 4)
     (mv_flat, level_y, recon_y, pred_sel, cost64, take64, cbf64_t, trd64,
      tidx64) = _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y,
                                cost32_tile, excl, qp, lam, bh, bw, 4,
-                               sbh16, sbh32, inv, coded, ref_pad)
+                               sbh16, sbh32, inv, coded, ref_pad, ref_flat)
     cu_depth = torch.full((bh * bw,), 2, dtype=torch.int32, device=dev)
     tr_depth = torch.zeros((bh * bw,), dtype=torch.int32, device=dev)
     cbf_y = (level_y != 0).any(-1).any(-1)
@@ -458,12 +493,13 @@ def _rep2(x: torch.Tensor, k: int = 2) -> torch.Tensor:
 
 def inter_boundary_strength(cbf, mv, block: int, h: int, w: int,
                             is_intra=None, tb2=None, mv8=None, nxn=None,
-                            cbf8=None):
+                            cbf8=None, ref=None):
     """BS maps for a P frame (spec 8.7.2.4): 2 at a PU/TU boundary where
-    either side is intra, else 1 where either side has luma cbf or the
-    MVs differ by >= 4 quarter-pel; interior edges of 32-wide TBs (tb2)
-    are off.  With mv8 [2bh, 2bw, 2], nxn [bh, bw] and cbf8 [2bh, 2bw]
-    (8x8 split CUs) the MV and cbf terms are evaluated per 8 pel, and a
+    either side is intra, else 1 where either side has luma cbf, the
+    MVs differ by >= 4 quarter-pel or (ref [bh, bw]) the reference
+    pictures differ; interior edges of 32-wide TBs (tb2) are off.  With
+    mv8 [2bh, 2bw, 2], nxn [bh, bw] and cbf8 [2bh, 2bw] (8x8 split CUs)
+    the MV, cbf and reference terms are evaluated per 8 pel, and a
     16-interior 8-edge is a boundary only inside a split block.
     Returns the vertical-edge map [h/4, w/8] and horizontal [h/8, w/4]."""
     bh, bw = cbf.shape
@@ -477,6 +513,14 @@ def inter_boundary_strength(cbf, mv, block: int, h: int, w: int,
         cond_v = (c[:, :-1] | c[:, 1:]) \
             | ((mv[:, :-1] - mv[:, 1:]).abs() >= 4).any(-1)
         cond_h = (c[:-1] | c[1:]) | ((mv[:-1] - mv[1:]).abs() >= 4).any(-1)
+    if ref is not None:
+        rv = ref[:, :-1] != ref[:, 1:]
+        rh = ref[:-1] != ref[1:]
+        if mv8 is not None:
+            rv = torch.repeat_interleave(rv, 2, 0)
+            rh = torch.repeat_interleave(rh, 2, 1)
+        cond_v = cond_v | rv
+        cond_h = cond_h | rh
     if tb2 is not None:
         j = torch.arange(bw - 1, device=dev)
         interior_v = ((j % 2) == 0)[None, :] & tb2[:, 1:]
@@ -793,14 +837,16 @@ def _intra_pref_count(cur, sad_me, cand_count, qpt, ctu: int):
 
 
 def _split8(cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
-            cbf_y, is_intra, dil, inv16, qp_t, lam_t, sign_hiding):
+            cbf_y, is_intra, dil, inv16, qp_t, lam_t, sign_hiding,
+            ref_sel=None):
     """8x8 inter CUs: 16x16 blocks with divergent motion re-code as four
     8x8 CUs with their own MVs (+-3 integer pel around the CU's MV,
     keeping its subpel phase) and 8x8 TBs, when the RD with the split's
     header and MV bits beats the 16x16 winner.  Candidates: the
-    _NXN_CAP eligible blocks of largest residual SAD.  Returns (nxn16
-    [nb], mv8 per 8x8 [4nb, 2], cbf8 [4nb], level_y, recon_y, cbf_y,
-    cost16)."""
+    _NXN_CAP eligible blocks of largest residual SAD.  With ref_sel [nb]
+    (ref_pad then the stacked [2, Hp, Wp] pad) each sub-CU searches and
+    predicts from its CU's reference.  Returns (nxn16 [nb], mv8 per 8x8
+    [4nb, 2], cbf8 [4nb], level_y, recon_y, cbf_y, cost16)."""
     r8 = 3
     bh, bw = mv.shape[:2]
     nb = bh * bw
@@ -827,13 +873,17 @@ def _split8(cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
     p8y = (torch.div(pu_sel, bw8, rounding_mode="floor") * 8).to(torch.int32)
     p8x = ((pu_sel % bw8) * 8).to(torch.int32)
     mv16_q = mv16_8[pu_sel]
-    win8 = me._gather_windows(ref_pad, me.REF_PAD + p8y
-                              + (mv16_q[:, 0] >> 2) - r8,
-                              me.REF_PAD + p8x + (mv16_q[:, 1] >> 2) - r8,
-                              8 + 2 * r8)
+    g8y = me.REF_PAD + p8y + (mv16_q[:, 0] >> 2) - r8
+    g8x = me.REF_PAD + p8x + (mv16_q[:, 1] >> 2) - r8
+    if ref_sel is None:
+        ref8 = None
+        win8 = me._gather_windows(ref_pad, g8y, g8x, 8 + 2 * r8)
+    else:
+        ref8 = torch.repeat_interleave(ref_sel[bsel], 4)
+        win8 = me._gather_windows_ref(ref_pad, ref8, g8y, g8x, 8 + 2 * r8)
     sads8 = me._stacked_window_sads(win8, cur8, 8, r8)
     mv8 = mv16_q + 4 * me._offsets(r8, dev)[torch.argmin(sads8, 0)]
-    pred8 = me.mc_luma_at(ref_pad, p8y, p8x, mv8, 8)
+    pred8 = me.mc_luma_at(ref_pad, p8y, p8x, mv8, 8, ref=ref8)
 
     def asm8(t):    # [4capb, 8, 8] quadrant-major -> [capb, 16, 16]
         return t.reshape(-1, 2, 2, 8, 8).permute(0, 1, 3, 2, 4) \
@@ -871,27 +921,37 @@ def _split8(cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
     return nxn16, mv8_pu, cbf8q, level_y, recon_y, cbf_y, cost16
 
 
-def _chroma_planes(ref_u, ref_v):
+def _chroma_planes(*planes):
+    """The edge-padded chroma reference planes, stacked: [U, V] with one
+    reference, [U0, U1, V0, V1] with two."""
     cpad = me.REF_PAD // 2
-    return torch.stack([me.pad_edge(ref_u.to(torch.int32), cpad),
-                        me.pad_edge(ref_v.to(torch.int32), cpad)]) \
-        .contiguous()
+    return torch.stack([me.pad_edge(p.to(torch.int32), cpad)
+                        for p in planes]).contiguous()
+
+
+def _chroma_plane_index(ref, n: int, device) -> torch.Tensor:
+    """Plane index of each U then each V window in _chroma_planes' stack:
+    [0]*n + [1]*n with one reference; the block's ref r ([n]) picks U_r
+    (r) and V_r (2 + r) with two."""
+    if ref is None:
+        return torch.repeat_interleave(torch.arange(2, device=device), n)
+    return torch.cat([ref, 2 + ref])
 
 
 def _code_chroma(u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c,
                  lam_cs, cs: int, bh: int, bw: int, sbh_scan_c,
-                 sign_hiding: bool, inv16):
-    """Chroma coding at the final MVs: one 16x16 chroma TB where the luma
-    TB is 32-wide, else four 8x8 TBs; both planes' MC windows come from
-    ONE plane-indexed gather.  qp_c, lam_cs: per block [nb]; a 16x16 TB
-    takes its 2x2 group's top-left block's.  Returns per-plane (levels,
-    recon, cbf)."""
+                 sign_hiding: bool, inv16, ref_sel=None):
+    """Chroma coding at the final MVs (and references, ref_sel [nb]): one
+    16x16 chroma TB where the luma TB is 32-wide, else four 8x8 TBs;
+    both planes' MC windows come from ONE plane-indexed gather.  qp_c,
+    lam_cs: per block [nb]; a 16x16 TB takes its 2x2 group's top-left
+    block's.  Returns per-plane (levels, recon, cbf)."""
     dev = u32.device
     nb = bh * bw
     cpad = me.REF_PAD // 2
     cby = cpad + pos_y // 2 + (mv_f[:, 0] >> 3) - 1
     cbx = cpad + pos_x // 2 + (mv_f[:, 1] >> 3) - 1
-    ri2 = torch.repeat_interleave(torch.arange(2, device=dev), nb)
+    ri2 = _chroma_plane_index(ref_sel, nb, dev)
     cw2 = me._gather_windows_ref(cplanes, ri2, cby.repeat(2),
                                  cbx.repeat(2), cs + 3) \
         .reshape(2, nb, cs + 3, cs + 3)
@@ -942,7 +1002,7 @@ def _code_chroma(u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c,
 
 def _split8_chroma(u32, v32, cplanes, nxn16, mv8_pu, pos_y, pos_x, lvl_c,
                    rec_c, cbf_c, qp_c, lam_cs, cs: int, bh: int,
-                   bw: int, sign_hiding: bool):
+                   bw: int, sign_hiding: bool, ref_sel=None):
     """Chroma of the 8x8 split CUs: each sub-CU's 4x4 chroma TB, MC'd at
     its own MV (compacted to _NXN_CAP blocks), overwrites the TB8 result
     (qp_c, lam_cs: per block [nb]).  Returns (lvl_c, rec_c, cbf_c,
@@ -964,7 +1024,9 @@ def _split8_chroma(u32, v32, cplanes, nxn16, mv8_pu, pos_y, pos_x, lvl_c,
     pux = (pos_x[bsel][:, None] + qdx * 8).reshape(-1)
     cby = cpad + puy // 2 + (mv8s[:, 0] >> 3) - 1
     cbx = cpad + pux // 2 + (mv8s[:, 1] >> 3) - 1
-    ri = torch.repeat_interleave(torch.arange(2, device=dev), 4 * capb)
+    ri = _chroma_plane_index(
+        None if ref_sel is None else torch.repeat_interleave(ref_sel[bsel], 4),
+        4 * capb, dev)
     cw = me._gather_windows_ref(cplanes, ri, cby.repeat(2), cbx.repeat(2),
                                 4 + 3)                  # [2*4capb, 7, 7]
     pn = interp.mc_chroma_phases(cw, (mv8s[:, 0] & 7).repeat(2),
@@ -1013,13 +1075,20 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                    fallback_serial: int = 0, quadtree_majority: bool = True,
                    inter_nxn: bool = False, true_size: bool = False,
                    wpp_substreams: bool = False, scaling_lists: bool = False,
+                   ref2_y=None, ref2_u=None, ref2_v=None, has_ref2=None,
                    **unsupported) -> dict:
-    """Encode one P frame against one reference.  y/u/v: uint8/int32
-    CTU-padded planes; ref_*: int32 reconstructed (deblocked, SAO'd)
-    reference planes of the same shapes; qp: the slice QP; qp_map: the
-    per-CTU QPs [ctus_y, ctus_x] (a tensor; None = the slice QP
-    everywhere).  Returns a dict of tensors (recon planes, coefficient
-    planes, mv, cbf, `packed`, `packed_full`)."""
+    """Encode one P frame against one or two references.  y/u/v:
+    uint8/int32 CTU-padded planes; ref_*: int32 reconstructed (deblocked,
+    SAO'd) reference planes of the same shapes; qp: the slice QP; qp_map:
+    the per-CTU QPs [ctus_y, ctus_x] (a tensor; None = the slice QP
+    everywhere).  ref2_*: the picture before ref_* (list0 index 1): ME
+    runs on both and each 16-block takes ref 1 where its cost plus a
+    sqrt(lambda)-priced ref_idx bin beats ref 0's; the pick flows through
+    merge/skip, split8, the quadtree, chroma MC, deblocking and the
+    record's ref_idx.  has_ref2 (a bool tensor, default True) masks the
+    pick to ref 0 where the second reference does not exist yet.
+    Returns a dict of tensors (recon planes, coefficient planes, mv,
+    cbf, `packed`, `packed_full`; `ref_idx` with two references)."""
     if fallback_serial:
         raise NotImplementedError("serial intra-fallback pass")
     if scaling_lists:
@@ -1070,6 +1139,10 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
         ref_y = repad(ref_y, ch8, cw8)
         ref_u = repad(ref_u, ch8 // 2, cw8 // 2)
         ref_v = repad(ref_v, ch8 // 2, cw8 // 2)
+        if ref2_y is not None:
+            ref2_y = repad(ref2_y, ch8, cw8)
+            ref2_u = repad(ref2_u, ch8 // 2, cw8 // 2)
+            ref2_v = repad(ref2_v, ch8 // 2, cw8 // 2)
     geom_l = None if cw8 is None else (s, cw8, ch8)
     geom_c = None if cw8 is None else (cs, cw8 // 2, ch8 // 2)
     coded = None if cw8 is None else (cw8, ch8)
@@ -1078,11 +1151,28 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     u32 = u.to(torch.int32)
     v32 = v.to(torch.int32)
 
+    multi_ref = ref2_y is not None
+    ref_sel = None
     with record_function("p.me"):
         mv, sad_me, pred = me.motion_estimate(cur, refy, block=s,
                                               precision=me_precision,
                                               subpel_r=me_subpel_r,
                                               sqrt_lam=torch.sqrt(lam))
+        if multi_ref:
+            ref2y = ref2_y.to(torch.int32)
+            mv1, sad1, pred1 = me.motion_estimate(
+                cur, ref2y, block=s, precision=me_precision,
+                subpel_r=me_subpel_r, sqrt_lam=torch.sqrt(lam))
+            # per-block reference pick: ref 1 pays a sqrt(lambda)-priced
+            # ref_idx bin at the block's own lambda (sad_me stays ref 0's
+            # cost: the intra-preference count reads it)
+            pen = torch.sqrt(lam_t.reshape(bh, bw))
+            sel = f32.fma(pen, 1.5, sad1) < sad_me
+            if has_ref2 is not None:
+                sel = sel & torch.as_tensor(has_ref2, device=dev)
+            ref_sel = sel.to(torch.int32)
+            mv = torch.where(sel[..., None], mv1, mv)
+            pred = torch.where(sel.reshape(-1)[:, None, None], pred1, pred)
     pos_y = torch.arange(bh, dtype=torch.int32,
                          device=dev).repeat_interleave(bw) * s
     pos_x = (torch.arange(bw, dtype=torch.int32, device=dev) * s).repeat(bh)
@@ -1094,18 +1184,27 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
         ix = torch.arange(bw, device=dev) * s >= vis_w
         inv16 = (iy[:, None] | ix[None, :]).reshape(-1)
     ref_pad = me.pad_edge(refy, me.REF_PAD).contiguous()
+    ref_pads = None
+    if multi_ref:
+        ref_pads = torch.stack([ref_pad, me.pad_edge(ref2y, me.REF_PAD)]) \
+            .contiguous()
 
     with record_function("p.merge"):
         # round 2 re-evaluates only the left/top candidates, built from
-        # round 1's winners
+        # round 1's winners (and their references)
         mv_me, carry = mv, None
         for _ in range(merge_rounds):
             mv_flat, level_y, recon_y, pred_sel, cost16, carry = \
                 _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_me, pred,
                                qp_t, lam_t, s, sbh_scan,
                                merge_candidate_fields(mv), inv=inv16,
-                               carry_in=carry)
+                               carry_in=carry, ref_grid=ref_sel,
+                               ref_pads=ref_pads)
             mv = mv_flat.reshape(bh, bw, 2)
+            if multi_ref:
+                ref_sel = carry["ref"].reshape(bh, bw)
+    ref_flat = None if ref_sel is None else ref_sel.reshape(-1)
+    ref_pad_sel = ref_pad if ref_pads is None else ref_pads
     cbf_y = (level_y != 0).any(-1).any(-1).reshape(bh, bw)
 
     is_intra = torch.zeros((nb,), dtype=torch.int32, device=dev)
@@ -1132,8 +1231,9 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     if inter_nxn:
         with record_function("p.split8"):
             nxn16, mv8_pu, cbf8q, level_y, recon_y, cbf_y, cost16 = _split8(
-                cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
-                cbf_y, is_intra, dil, inv16, qp_t, lam_t, sign_hiding)
+                cur, cur_b, ref_pad_sel, mv, pred_sel, cost16, level_y,
+                recon_y, cbf_y, is_intra, dil, inv16, qp_t, lam_t,
+                sign_hiding, ref_sel=ref_flat)
 
     with record_function("p.quadtree"):
         mv, level_y, recon_y, cbf_y, cu_depth, tr_depth, chroma16 = \
@@ -1141,8 +1241,8 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                                  cost16, dil.reshape(-1) | nxn16, qp_t,
                                  lam_t,
                                  bh, bw, sign_hiding, inv=inv16, coded=coded,
-                                 ref_pad=ref_pad if quadtree_majority
-                                 else None)
+                                 ref_pad=ref_pad_sel if quadtree_majority
+                                 else None, ref_flat=ref_flat)
         # split blocks become four 8x8 CUs (depth 3, TU8 leaves)
         cu_depth = torch.where(nxn16.reshape(bh, bw), 3, cu_depth) \
             .to(torch.int32)
@@ -1150,15 +1250,17 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
 
     lam_cs = lam_ct * chroma_rd_scale
     with record_function("p.chroma"):
-        cplanes = _chroma_planes(ref_u, ref_v)
+        cplanes = (_chroma_planes(ref_u, ref2_u, ref_v, ref2_v) if multi_ref
+                   else _chroma_planes(ref_u, ref_v))
         lvl_c, rec_c, cbf_c = _code_chroma(
             u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_ct, lam_cs,
-            cs, bh, bw, sbh_scan_c, sign_hiding, inv16)
+            cs, bh, bw, sbh_scan_c, sign_hiding, inv16, ref_sel=ref_flat)
         cbf8c = [torch.zeros((4 * nb,), dtype=torch.bool, device=dev)] * 2
         if inter_nxn:
             lvl_c, rec_c, cbf_c, cbf8c = _split8_chroma(
                 u32, v32, cplanes, nxn16, mv8_pu, pos_y, pos_x, lvl_c,
-                rec_c, cbf_c, qp_ct, lam_cs, cs, bh, bw, sign_hiding)
+                rec_c, cbf_c, qp_ct, lam_cs, cs, bh, bw, sign_hiding,
+                ref_sel=ref_flat)
 
     if intra_fallback:
         # per round, so a later round's references read the chroma the
@@ -1200,7 +1302,8 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                 mv8=mv8_final.reshape(2 * bh, 2 * bw, 2) if inter_nxn
                 else None,
                 nxn=nxn16.reshape(bh, bw) if inter_nxn else None,
-                cbf8=cbf8_y.reshape(2 * bh, 2 * bw) if inter_nxn else None)
+                cbf8=cbf8_y.reshape(2 * bh, 2 * bw) if inter_nxn else None,
+                ref=ref_sel)
             if coded is not None:
                 bs_v[:, coded[0] // 8:] = 0
                 bs_h[coded[1] // 8:, :] = 0
@@ -1235,6 +1338,8 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                coeff_cb=_unblocks(lvl_c[0], h // 2, w // 2).to(torch.int16),
                coeff_cr=_unblocks(lvl_c[1], h // 2, w // 2).to(torch.int16),
                mv=mv, cbf=cbf)
+    if multi_ref:
+        out["ref_idx"] = ref_sel
     cap_y, cap_c, esc_y, esc_c = p_caps(nb)
     cap_ys, cap_cs, esc_ys, esc_cs = p_caps_small(nb)
     with record_function("p.pack"):
@@ -1256,7 +1361,8 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                     | (c8g[:, 1, :, 0] << 6) | (c8g[:, 1, :, 1] << 9))
         i16 = dict(dtype=torch.int16, device=dev)
         parts = [mv.to(torch.int16).reshape(-1),
-                 torch.zeros((nb,), **i16),             # ref_idx
+                 (torch.zeros((nb,), **i16) if ref_sel is None
+                  else ref_sel.to(torch.int16).reshape(-1)),
                  cbf.to(torch.int16).reshape(-1),
                  is_intra.to(torch.int16),
                  intra_modes.to(torch.int16),
@@ -1275,23 +1381,36 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
 
 
 def encode_p_chunk(ys, us, vs, ref_y, ref_u, ref_v, qp, qp_maps=None,
+                   ref2_y=None, ref2_u=None, ref2_v=None, has_ref2=None,
                    **flags) -> dict:
     """K consecutive P frames, each predicted from the previous one's
     reconstruction.  ys uint8/int32 [K, H, W]; qp int or K ints; qp_maps
-    None or a tensor of K per-CTU QP maps [K, ctus_y, ctus_x].
-    Returns dict(recon_* of the last frame, packed [K, L],
-    packed_full [K, L2], coeff_* [K, ...])."""
+    None or a tensor of K per-CTU QP maps [K, ctus_y, ctus_x].  With
+    ref2_* (the picture before ref_*) each frame also predicts from the
+    one two back; has_ref2 [K] bool (a tensor) masks the frames whose
+    second reference does not exist yet.  Returns dict(recon_* of the
+    last frame, recon2_* of the one before with two references,
+    packed [K, L], packed_full [K, L2], coeff_* [K, ...])."""
     k = ys.shape[0]
     qps = [int(qp)] * k if np.ndim(qp) == 0 else [int(q) for q in qp]
     ref = (ref_y, ref_u, ref_v)
+    ref2 = None if ref2_y is None else (ref2_y, ref2_u, ref2_v)
     per = []
     for j in range(k):
+        kw = {}
+        if ref2 is not None:
+            kw = dict(ref2_y=ref2[0], ref2_u=ref2[1], ref2_v=ref2[2],
+                      has_ref2=None if has_ref2 is None else has_ref2[j])
         out = encode_p_frame(ys[j], us[j], vs[j], *ref, qp=qps[j],
                              qp_map=None if qp_maps is None else qp_maps[j],
-                             **flags)
+                             **kw, **flags)
+        if ref2 is not None:
+            ref2 = ref
         ref = (out["recon_y"], out["recon_u"], out["recon_v"])
         per.append(out)
     res = dict(recon_y=ref[0], recon_u=ref[1], recon_v=ref[2])
+    if ref2 is not None:
+        res.update(recon2_y=ref2[0], recon2_u=ref2[1], recon2_v=ref2[2])
     for key in ("packed", "packed_full", "coeff_y", "coeff_cb", "coeff_cr"):
         res[key] = torch.stack([o[key] for o in per])
     return res
@@ -1299,7 +1418,8 @@ def encode_p_chunk(ys, us, vs, ref_y, ref_u, ref_v, qp, qp_maps=None,
 
 def encode_p_chunk_packed(buf, ref_y, ref_u, ref_v, *, k: int, vis_h: int,
                           vis_w: int, ctu: int, qp, qp_maps=None,
-                          **flags) -> dict:
+                          ref2_y=None, ref2_u=None, ref2_v=None,
+                          has_ref2=None, **flags) -> dict:
     """encode_p_chunk behind ONE host->device buffer: the K frames' raw
     (unpadded) Y|U|V planes raveled into a uint8 vector; padding to the
     CTU multiple (edge replication) happens on the device."""
@@ -1315,5 +1435,6 @@ def encode_p_chunk_packed(buf, ref_y, ref_u, ref_v, *, k: int, vis_h: int,
         return p.index_select(1, rows).index_select(2, cols)
     return encode_p_chunk(pad(ys, ctu), pad(us, ctu // 2),
                           pad(vs, ctu // 2), ref_y, ref_u, ref_v, qp=qp,
-                          qp_maps=qp_maps, vis_h=vis_h, vis_w=vis_w,
-                          ctu=ctu, **flags)
+                          qp_maps=qp_maps, ref2_y=ref2_y, ref2_u=ref2_u,
+                          ref2_v=ref2_v, has_ref2=has_ref2, vis_h=vis_h,
+                          vis_w=vis_w, ctu=ctu, **flags)

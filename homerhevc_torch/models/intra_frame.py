@@ -1,17 +1,21 @@
 """Batched intra-frame encoder: dense mode decision + wavefront recon.
 
 Port of homerhevc_tpu/models/intra_frame.py (`encode_frame`) without
-tiles, scaling lists and the full-RD top-3 refinement (rd_refine).
+tiles and scaling lists.
 
 1. Dense decision: luma modes at 32, 16 and (search_8x8 / search_nxn) 8
    and 4, and the 5-candidate chroma modes, from source-pixel reference
-   samples, for every block at once.
+   samples, for every block at once; under rd_refine (rd=FULL) the
+   SATD cost's three best modes at 32 and 16 with their mode bits.
 2. Wavefront reconstruction over 32x32 slots (models/schedule.py plans):
    each step reconstructs all slots of one anti-diagonal as one batch —
-   a 32x32 CU against its four 16x16 children, each 16x16 against four
-   8x8 CUs (search_8x8), each 8x8 against the TU split at its parent's
-   mode (tu_split) and against four 4x4 NxN PUs with DST (search_nxn),
-   all with SSD + lambda*bits RD; chroma (DM) 16x16, 8x8 or 4x4 TBs.
+   a 32x32 CU against its four 16x16 children (under rd_refine each at
+   the best of its three candidate modes by SSD + lambda * (residual +
+   mode bits), chroma DM following the refined mode), each 16x16
+   against four 8x8 CUs (search_8x8), each 8x8 against the TU split at
+   its parent's mode (tu_split) and against four 4x4 NxN PUs with DST
+   (search_nxn), all with SSD + lambda*bits RD; chroma (DM) 16x16, 8x8
+   or 4x4 TBs.
 3. Deblocking, SAO and the packed device->host record.
 """
 from __future__ import annotations
@@ -29,6 +33,7 @@ from homerhevc_torch.ops.me import blocks as _blocks
 
 _CU_HDR_BITS = 6.0
 _SPLIT_BITS = 1.5
+_K_REFINE = 3               # rd=FULL: candidate modes per 32 and 16 CU
 _SUB_OFF = ((0, 0), (0, 1), (1, 0), (1, 1))     # z-order (qy, qx)
 
 
@@ -124,10 +129,13 @@ def _avail_mask(seg_av: np.ndarray, s: int) -> np.ndarray:
             @ _segment_avail_layout(s).astype(np.int32)) > 0
 
 
-def _dense_best(y32: torch.Tensor, s: int, ctu: int, sqrt_lam):
+def _dense_best(y32: torch.Tensor, s: int, ctu: int, sqrt_lam,
+                topk: int = 1):
     """Best intra mode per s x s block (SATD + MPM-aware mode bits,
     source-pixel references).  Returns (mode [bh, bw] int64, its cost
-    [bh, bw] float32)."""
+    [bh, bw] float32); with topk > 1, the topk best modes and their mode
+    bits, best first ([topk, bh, bw] each; equal costs lowest mode
+    first, as lax.top_k)."""
     h, w = y32.shape
     bh, bw = h // s, w // s
     nb = bh * bw
@@ -153,7 +161,12 @@ def _dense_best(y32: torch.Tensor, s: int, ctu: int, sqrt_lam):
     cands = _mpm_candidates(left_m.reshape(-1), top_m.reshape(-1))
     all_m = torch.arange(35, device=dev)
     in_mpm = (all_m[None, :, None] == cands[:, None, :]).any(-1)
-    cost = f32.fma(sqrt_lam, rdbits.intra_mode_bits(in_mpm), all_s)
+    mbits = rdbits.intra_mode_bits(in_mpm)
+    cost = f32.fma(sqrt_lam, mbits, all_s)
+    if topk > 1:
+        idx = torch.sort(cost, dim=-1, stable=True)[1][:, :topk]
+        return (idx.T.reshape(topk, bh, bw),
+                torch.gather(mbits, 1, idx).T.reshape(topk, bh, bw))
     return (torch.argmin(cost, -1).reshape(bh, bw),
             cost.amin(-1).reshape(bh, bw))
 
@@ -320,6 +333,28 @@ def _tq_recon(orig, pred, size, qp, lam, sign_hiding=False, mode=None,
     return level.to(torch.int32), recon.to(torch.int32), cbf
 
 
+def _refine(orig, adi, mk, mbk, size: int, qp, lamf, sign_hiding):
+    """Full-RD pick among K candidate modes mk [K, nb] (mode bits mbk
+    [K, nb]) of one block per slot: each reconstructed from the true
+    ADI, the pick by SSD + lambda * (residual + mode bits), equal costs
+    the earlier candidate.  Returns ((level, recon, cbf) of the pick,
+    its mode [nb], its SSD + lambda * residual bits [nb])."""
+    k, nb = mk.shape
+    o_k = orig.repeat(k, 1, 1)
+    pred = intra.predict_single_mode(adi.repeat(k, 1), mk.reshape(-1), size,
+                                     True, strong=size == 32)
+    lvl, rec, cbf = _tq_recon(o_k, pred, size, qp, lamf, sign_hiding)
+    ssd = ((rec - o_k) ** 2).sum((-1, -2)).to(torch.float32)
+    base = f32.fma(lamf, rdbits.residual_bits(lvl, size, qp=qp),
+                   ssd).reshape(k, nb)
+    kb = torch.argmin(f32.fma(lamf, mbk, base), 0)
+    ar = torch.arange(nb, device=orig.device)
+
+    def pick(t):
+        return t.reshape(k, nb, *t.shape[1:])[kb, ar]
+    return (pick(lvl), pick(rec), pick(cbf)), mk[kb, ar], base[kb, ar]
+
+
 def _ssd_cost(rec, orig, lvl, size, qp, lamf):
     ssd = ((rec - orig) ** 2).sum((-1, -2)).to(torch.float32)
     return f32.fma(lamf, rdbits.residual_bits(lvl, size, qp=qp)
@@ -453,8 +488,6 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
     """Encode one intra frame; planes uint8/int32 tensors, CTU-padded,
     on the device the frame is computed on.  Returns a dict of tensors
     (recon planes, coefficient planes, decision maps, `packed`)."""
-    if rd_refine:
-        raise NotImplementedError("intra full-RD refinement (rd=FULL)")
     if tiles is not None or scaling_lists:
         raise NotImplementedError("tiles / scaling lists")
     if (search_nxn or tu_split) and not search_8x8:
@@ -478,8 +511,14 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
 
     # ---- pass 1: dense decision
     sqrt_lam = torch.sqrt(lamf)
-    mode32, _ = _dense_best(y32, 32, ctu, sqrt_lam)
-    mode16, _ = _dense_best(y32, 16, ctu, sqrt_lam)
+    if rd_refine:
+        # the SATD cost's top K at 32 and 16 for the full-RD refinement
+        mode32k, mbits32k = _dense_best(y32, 32, ctu, sqrt_lam, _K_REFINE)
+        mode16k, mbits16k = _dense_best(y32, 16, ctu, sqrt_lam, _K_REFINE)
+        mode32, mode16 = mode32k[0], mode16k[0]
+    else:
+        mode32, _ = _dense_best(y32, 32, ctu, sqrt_lam)
+        mode16, _ = _dense_best(y32, 16, ctu, sqrt_lam)
     sqrt_lam_c = torch.sqrt(lamcf)
     cmode32 = _dense_best_chroma(u32, v32, mode32, 32, ctu, sqrt_lam_c)
     cmode16 = _dense_best_chroma(u32, v32, mode16, 16, ctu, sqrt_lam_c)
@@ -515,10 +554,15 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
 
         adi32 = intra.substitute_refs(_adi_at(rec_y, y0, x0, 32),
                                       st["av32"])
-        pred32 = intra.predict_single_mode(adi32, m32, 32, True,
-                                           strong=True)
-        lvl32, rec32, cbf32 = _tq_recon(orig32, pred32, 32, qp, lamf,
-                                        sign_hiding)
+        if rd_refine:
+            (lvl32, rec32, cbf32), m32, _ = _refine(
+                orig32, adi32, mode32k[:, by, bx], mbits32k[:, by, bx], 32,
+                qp, lamf, sign_hiding)
+        else:
+            pred32 = intra.predict_single_mode(adi32, m32, 32, True,
+                                               strong=True)
+            lvl32, rec32, cbf32 = _tq_recon(orig32, pred32, 32, qp, lamf,
+                                            sign_hiding)
 
         # luma 16 children in z-order, each against its four 8x8 CUs
         # (search_8x8); each predicts from its predecessors' recon
@@ -526,6 +570,7 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
         lvl_ch = torch.zeros((nb, 32, 32), **i32)
         cost_children = (lamf * _SPLIT_BITS).expand(nb)
         m16_all = [mode16[2 * by + a, 2 * bx + b] for a, b in _SUB_OFF]
+        m16_sel = []
         cm8_all = [[cmode8[4 * by + 2 * a + c, 4 * bx + 2 * b + d]
                     for c, d in _SUB_OFF] for a, b in _SUB_OFF] \
             if search_8x8 else None
@@ -536,9 +581,22 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
             adi16 = intra.substitute_refs(
                 _patch_adi(patch, oy, ox, 16), st["av16"][k16])
             o16 = orig32[:, oy:oy + 16, ox:ox + 16]
-            pr16 = intra.predict_single_mode(adi16, m16, 16, True)
-            l16, r16, c16 = _tq_recon(o16, pr16, 16, qp, lamf, sign_hiding)
-            cost16 = _ssd_cost(r16, o16, l16, 16, qp, lamf)
+            if rd_refine:
+                a, b = 2 * by + qq_y, 2 * bx + qq_x
+                (l16, r16, c16), m16, base = _refine(
+                    o16, adi16, mode16k[:, a, b], mbits16k[:, a, b], 16,
+                    qp, lamf, sign_hiding)
+                # the mode bits price the selection only: the CU's cost
+                # carries the header bits, as the children's do (the
+                # scalar product is rounded before the add, as XLA-CPU
+                # hoists it out of the loop)
+                cost16 = base + lamf * _CU_HDR_BITS
+            else:
+                pr16 = intra.predict_single_mode(adi16, m16, 16, True)
+                l16, r16, c16 = _tq_recon(o16, pr16, 16, qp, lamf,
+                                          sign_hiding)
+                cost16 = _ssd_cost(r16, o16, l16, 16, qp, lamf)
+            m16_sel.append(m16)
             if not search_8x8:
                 cost_children = cost_children + cost16
                 patch[:, oy + 1:oy + 17, ox + 1:ox + 17] = r16
@@ -607,6 +665,11 @@ def encode_frame(y, u, v, qp: int, ctu: int = 64, sign_hiding: bool = False,
         cm32 = cmode32[by, bx]
         cm16_a = torch.stack([cmode16[2 * by + a, 2 * bx + b]
                               for a, b in _SUB_OFF])        # [4, nb]
+        if rd_refine:
+            # chroma DM follows the refined luma modes
+            cm32 = torch.where(cm32 == mode32[by, bx], m32, cm32)
+            cm16_a = torch.where(cm16_a == torch.stack(m16_all),
+                                 torch.stack(m16_sel), cm16_a)
         if search_8x8:
             cm8_a = torch.stack([torch.stack(r) for r in cm8_all])
             if tu_split:

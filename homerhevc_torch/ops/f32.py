@@ -27,13 +27,13 @@ import torch
 def fma(a, b, c) -> torch.Tensor:
     """round_f32(a * b + c) with one rounding (tensors or Python floats;
     at least one argument must be a tensor)."""
-    ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
 
     def d(x):
         if isinstance(x, torch.Tensor):
             return x.to(torch.float64)
-        return torch.tensor(float(torch.tensor(x, dtype=torch.float32)),
-                            dtype=torch.float64, device=ref.device)
+        # the float32 value as a Python float: an operand of the kernel,
+        # not a tensor to upload
+        return float(torch.tensor(x, dtype=torch.float32))
     return (d(a) * d(b) + d(c)).to(torch.float32)
 
 

@@ -19,10 +19,19 @@ _CLIP_MAX = 32767
 
 
 def _qp_tensor(qp, device) -> torch.Tensor:
+    if not isinstance(qp, torch.Tensor) and np.ndim(qp) == 0:
+        return _qp_const(int(qp), device)
     qp = torch.as_tensor(qp, dtype=torch.int32, device=device)
     if qp.dim() > 0:
         qp = qp.reshape(qp.shape + (1, 1))
     return qp
+
+
+@functools.lru_cache(maxsize=None)
+def _qp_const(qp: int, device) -> torch.Tensor:
+    """A Python-int QP as a 0-d tensor on `device`, uploaded once (an
+    upload from host memory waits for the device's queue to drain)."""
+    return torch.tensor(qp, dtype=torch.int32, device=device)
 
 
 def quant_params(qp, size: int, device, bit_depth: int = 8):
@@ -35,8 +44,11 @@ def quant_params(qp, size: int, device, bit_depth: int = 8):
     return per, rem, qbits, transform_shift
 
 
-def _table(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=device)
+@functools.lru_cache(maxsize=None)
+def _table(name: str, device) -> torch.Tensor:
+    """tables.<name> as an int32 tensor on `device`, uploaded once."""
+    return torch.as_tensor(np.asarray(getattr(tables, name)),
+                           dtype=torch.int32, device=device)
 
 
 def quantize(coeff: torch.Tensor, qp, size: int, is_intra: bool = True,
@@ -45,7 +57,7 @@ def quantize(coeff: torch.Tensor, qp, size: int, is_intra: bool = True,
     171/512 intra, 85/512 inter."""
     dev = coeff.device
     per, rem, qbits, _ = quant_params(qp, size, dev, bit_depth)
-    q = _table(tables.QUANT_SCALES, dev)[rem.long()]
+    q = _table("QUANT_SCALES", dev)[rem.long()]
     add = torch.full_like(qbits, 171 if is_intra else 85) << (qbits - 9)
     c = coeff.to(torch.int32)
     absc = c.abs()
@@ -63,7 +75,7 @@ def dequantize(level: torch.Tensor, qp, size: int, bit_depth: int = 8,
     per, rem, _, transform_shift = quant_params(qp, size, dev, bit_depth)
     iq_shift = (tables.QUANT_IQUANT_SHIFT - tables.QUANT_SHIFT
                 - transform_shift + 4)
-    dq = _table(tables.INV_QUANT_SCALES, dev)[rem.long()] * 16
+    dq = _table("INV_QUANT_SCALES", dev)[rem.long()] * 16
     lv = level.to(torch.int32)
     sh = torch.clamp(iq_shift - per, min=1)
     down = (lv * dq + (torch.ones_like(sh) << (sh - 1))) >> sh

@@ -76,10 +76,9 @@ def _level_bits_arith(lv: torch.Tensor) -> torch.Tensor:
     k = floor_log2(torch.clamp(rem - 3.0, min=0.0) + 2.0)
     rice = torch.where(rem < 3.0, rem + 1.0, 4.0 + 2.0 * k)
     return torch.where(
-        l <= 1.0, torch.tensor(GT1_BITS[0], device=l.device),
+        l <= 1.0, _f32_const(GT1_BITS[0], l.device),
         torch.where(l <= 2.0,
-                    torch.tensor(GT1_BITS[1] + GT2_BITS[0],
-                                 device=l.device),
+                    _f32_const(GT1_BITS[1] + GT2_BITS[0], l.device),
                     (GT1_BITS[1] + GT2_BITS[1]) + rice))
 
 
@@ -145,8 +144,8 @@ def residual_bits(level: torch.Tensor, size: int, qp=None) -> torch.Tensor:
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     if ncg > 1:
         cg_coded = (cg_idx >= 1) & (cg_idx < last_cg[..., None])
-        cgb = torch.where(cg_nz, torch.tensor(CG_BITS[1], device=dev),
-                          torch.tensor(CG_BITS[0], device=dev))
+        cgb = torch.where(cg_nz, _f32_const(CG_BITS[1], dev),
+                          _f32_const(CG_BITS[0], dev))
         bits_cg = f32.row_sum(torch.where(cg_coded, cgb, zero))
     else:
         bits_cg = torch.zeros(lastc.shape, dtype=torch.float32, device=dev)
@@ -154,8 +153,8 @@ def residual_bits(level: torch.Tensor, size: int, qp=None) -> torch.Tensor:
     cg_on = cg_nz | (cg_idx == 0) | (cg_idx == last_cg[..., None])
     pos_on = torch.repeat_interleave(cg_on, 16, dim=-1) \
         & (idx < last[..., None])
-    sigb = torch.where(nz, torch.tensor(SIG_BITS[1], device=dev),
-                       torch.tensor(SIG_BITS[0], device=dev))
+    sigb = torch.where(nz, _f32_const(SIG_BITS[1], dev),
+                       _f32_const(SIG_BITS[0], dev))
     bits_sig = f32.row_sum(torch.where(pos_on, sigb, zero))
 
     # XLA-CPU vectorizes this reduction of a 4x4 TB (a halving tree)
@@ -164,7 +163,9 @@ def residual_bits(level: torch.Tensor, size: int, qp=None) -> torch.Tensor:
 
     total = bits_last + bits_cg + bits_sig + bits_lvl
     if qp is not None:
-        total = total * qp_scale(qp).to(dev)
+        scale = qp_scale(qp) if isinstance(qp, torch.Tensor) else \
+            _qp_scale_table(dev)[min(max(int(qp), 0), 63)]
+        total = total * scale
     return torch.where(any_nz, total, zero)
 
 
@@ -178,7 +179,7 @@ def mvd_bits(mvd: torch.Tensor) -> torch.Tensor:
     egk = floor_log2(v / 2.0 + 1.0)
     eg1 = 2.0 * egk + 2.0
     zero = torch.zeros((), dtype=torch.float32, device=a.device)
-    comp = (1.0 + torch.where(gt0, torch.tensor(2.0, device=a.device), zero)
+    comp = (1.0 + torch.where(gt0, _f32_const(2.0, a.device), zero)
             + torch.where(gt1, eg1, zero))
     return comp[..., 0] + comp[..., 1]
 
@@ -186,8 +187,8 @@ def mvd_bits(mvd: torch.Tensor) -> torch.Tensor:
 def intra_mode_bits(in_mpm: torch.Tensor) -> torch.Tensor:
     """Luma intra mode bits: MPM hit = flag + 1-2 bypass bins (2.4 on
     average), miss = flag + 5 bypass bins."""
-    return torch.where(in_mpm, torch.tensor(2.4, device=in_mpm.device),
-                       torch.tensor(6.0, device=in_mpm.device))
+    return torch.where(in_mpm, _f32_const(2.4, in_mpm.device),
+                       _f32_const(6.0, in_mpm.device))
 
 
 def rd_lambda_f32(qp: torch.Tensor, slice_type_i: bool) -> torch.Tensor:

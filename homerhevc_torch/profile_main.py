@@ -1,16 +1,18 @@
 """Where the time of the port's main path goes on one CUDA device.
 
-    python -m homerhevc_torch.profile_main
+    python -m homerhevc_torch.profile_main [qp32] [cbr1250] [full2ref]
 
-Encodes 1280x720 IPPP in the default configuration (rd=FAST,
-frames_per_launch=4) from seeded synthetic video whose content fires the
-rd=FAST tools, with two encoders: at fixed QP32 (the main path of
-chip_smoke.py) and under CBR at 1250 kbps and 25 fps (per-CTU QP with
-cu_qp_delta; its phase 6).  Each encodes its I frame (wall time only:
+Encodes 1280x720 IPPP (frames_per_launch=4) from seeded synthetic video
+whose content fires the rd=FAST tools, with up to three encoders (all
+three unless named): at fixed QP32 in the default configuration, rd=FAST
+(chip_smoke.py phase 5); under CBR at 1250 kbps and 25 fps (per-CTU QP
+with cu_qp_delta; its phase 6); and at fixed QP32, rd=FULL with two
+reference pictures, on the same video plus a flicker on odd frames over
+the left half (its phase 7).  Each encodes its I frame (wall time only:
 its wavefront launches millions of operations, more than the profiler's
 post-processing can digest in a run) and a first P chunk as warm-up;
-then the two encode P chunks in turns, each timed by wall clock (P fps
-of both from one stretch of the run); then, per encoder, a P chunk
+then they encode P chunks in turns, each timed by wall clock (P fps of
+all from one stretch of the run); then, per encoder, a P chunk
 through encode_async/flush under torch.profiler.  Prints one JSON line
 per window, tagged with its configuration: its wall time and, for the
 profiled P window, the share of it in which the device ran work, the
@@ -28,6 +30,7 @@ import collections
 import json
 import os
 import subprocess
+import sys
 import time
 import warnings
 
@@ -35,7 +38,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from homerhevc_torch.api import Encoder
-from homerhevc_torch.config import BitrateMode, EncoderConfig
+from homerhevc_torch.config import BitrateMode, EncoderConfig, RDMode
 from homerhevc_torch.utils.synthetic import synthetic_video
 
 
@@ -155,20 +158,25 @@ def main():
     configs = {"qp32": EncoderConfig(qp=32, **size),
                "cbr1250": EncoderConfig(bitrate_mode=BitrateMode.CBR,
                                         bitrate=1250, frame_rate=25,
-                                        **size)}
+                                        **size),
+               "full2ref": EncoderConfig(qp=32, rd_mode=RDMode.RD_FULL,
+                                         num_ref_frames=2, **size)}
+    pick = sys.argv[1:] or list(configs)
+    configs = {c: configs[c] for c in pick}
     n = 1 + (3 + TURNS) * P_FRAMES
-    frames = synthetic_video(n, 720, 1280, plants=64, diverge=128, quads=64)
+    video = dict(plants=64, diverge=128, quads=64)
 
     def emitter(label):
         return lambda res: print(
             json.dumps(dict(res, config=label, card=card)), flush=True)
-    runs = {c: _encoder(cfg, frames, emitter(c))
-            for c, cfg in configs.items()}
+    runs = {c: _encoder(cfg, synthetic_video(
+        n, 720, 1280, flicker=20 if cfg.num_ref_frames == 2 else 0,
+        **video), emitter(c)) for c, cfg in configs.items()}
     # P chunks timed in turns (a b b a ...): the host's speed drifts
     # within a run, and this alternation cancels a linear drift
-    a, b = configs
+    order = list(configs) + list(configs)[::-1]
     secs = {c: [] for c in configs}
-    for c in [a, b, b, a] * (TURNS // 2):
+    for c in order * (TURNS // 2):
         secs[c].append(_wall("p_chunk", runs[c][1])["wall_ms"] / 1e3)
     for c, (out, chunk) in runs.items():
         emit = emitter(c)

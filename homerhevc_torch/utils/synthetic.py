@@ -6,7 +6,7 @@ import numpy as np
 
 def synthetic_video(n: int, h: int, w: int, seed: int = 7,
                     plants: int = 0, diverge: int = 0, quads: int = 0,
-                    scene_cut: int = None) -> list:
+                    scene_cut: int = None, flicker: int = 0) -> list:
     """n frames (Y, U, V) uint8: textured luma under a global pan of
     (1, 3) pixels per frame, smooth low-frequency chroma (the pattern of
     the JAX package's bench).  The options add content for the rd=FAST
@@ -24,7 +24,11 @@ def synthetic_video(n: int, h: int, w: int, seed: int = 7,
       8x8 quadrant, which the I frame codes as four 8x8 CUs of one mode
       (folded into a 16x16 CU with a split transform tree);
     * scene_cut: from this frame on, the luma shows other texture and a
-      vertical gradient near 255 (above anything the texture holds).
+      vertical gradient near 255 (above anything the texture holds);
+    * flicker: odd frames add a fixed noise field of amplitude +-flicker,
+      moving with the pan, over the left half of the picture: there the
+      frame two back (same parity) is the better reference, elsewhere
+      the previous frame (two-reference coding).
     """
     rng = np.random.default_rng(seed)
     m = 4 * n + 8
@@ -42,12 +46,17 @@ def synthetic_video(n: int, h: int, w: int, seed: int = 7,
              for bx in range(1, w // 16, 4)][:plants]
     q0y, q0x = (h - quads) // 16 * 16, (w - quads) // 16 * 16
     levels = rng.integers(0, 6, (quads // 8, quads // 8)) * 16
+    flick = rng.integers(-flicker, flicker + 1, xx.shape) if flicker else None
     quad_patch = (((np.arange(quads) // 2) % 2) * 50 + 40)[None, :] \
         + np.repeat(np.repeat(levels, 8, 0), 8, 1)
     out = []
     for i in range(n):
         dx, dy = 3 * i, i
         y = base[dy:dy + h, dx:dx + w].copy()
+        if flicker and i % 2 == 1:
+            f = flick[dy:dy + h, dx:dx + w]
+            y[:, :w // 2] = np.clip(y[:, :w // 2].astype(np.int32)
+                                    + f[:, :w // 2], 0, 255)
         if scene_cut is not None and i >= scene_cut:
             g = np.mgrid[0:h, 0:w]
             y = (250 + g[0] // 16 + 2 * (i - scene_cut)).clip(0, 255) \
