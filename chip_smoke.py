@@ -18,8 +18,11 @@ Phases (any failure raises and exits non-zero):
      a scene cut that restarts the GOP), at rd=FULL with two reference
      pictures (eight such frames with a flicker, the first P after each
      IDR masked to one reference), under CBR (1 I + 8 P, per-CTU QP with
-     cu_qp_delta) and under VBR with WPP substreams (1 I + 4 P): the
-     Annex-B bytes and the reconstructions must be identical;
+     cu_qp_delta), under VBR with WPP substreams (1 I + 4 P), all-intra
+     with a 2x2 tile grid and the default scaling lists (six frames in
+     chunks of four, the second padded) and IPPP with the default
+     scaling lists (1 I + 4 P): the Annex-B bytes and the
+     reconstructions must be identical;
   4. the rd=ULTRAFAST path: 1280x720 IPPP at QP32, 1 I + 4 P frames
      through Encoder.encode_async/flush: every kernel launched, at the
      path's shapes;
@@ -42,7 +45,17 @@ Phases (any failure raises and exits non-zero):
      launched at every call site (ME on both references: 4 slab searches
      per P frame), each equal to its plain version on one P frame's
      recorded inputs; prints the share of ref 1 per frame, P fps and the
-     I frame's seconds.
+     I frame's seconds;
+  8. this slice's path, all-intra: 1280x720 at QP32 with intra_period=1,
+     tile_auto (a 4x3 tile grid) and the default scaling lists, 8 frames
+     of phase 5's video through Encoder.encode_async/flush as one chunk
+     of intra_frames_per_launch=8, then its first frame alone through
+     Encoder.encode (one frame per wavefront step), which must give the
+     chunk's bytes for it: no kernel may be launched (the I frame has
+     none); prints the wavefront steps with and without the tiles, the
+     chunk's and the single frame's seconds, bits and PSNR per frame, and
+     the device operations and wall time of one wavefront step at 8
+     frames and at 1 (step 10, run again after its run).
 The line before the last two is {"kernels": [...]}: per kernel, on one
 phase-7 P frame's inputs, its launches over the phase, error, time
 (median and spread of 5 runs of 50), the plain version's and a PyTorch
@@ -65,7 +78,9 @@ from homerhevc_torch.api import Encoder                       # noqa: E402
 from homerhevc_torch.config import (                        # noqa: E402
     BitrateMode, EncoderConfig, RDMode)
 from homerhevc_torch.entropy import binding                   # noqa: E402
+from homerhevc_torch.models import schedule                   # noqa: E402
 from homerhevc_torch.ops import kernels                       # noqa: E402
+from homerhevc_torch.profile_main import StepProbe            # noqa: E402
 from homerhevc_torch.utils.synthetic import synthetic_video   # noqa: E402
 
 DEV = torch.device("cuda")
@@ -336,12 +351,23 @@ def phase_cpu_parity():
                            **small), rc_video, False),
             (EncoderConfig(bitrate_mode=BitrateMode.VBR, bitrate=150,
                            wpp_substreams=True, **small), rc_video[:5],
+             False),
+            (EncoderConfig(**dict(small, intra_period=1),
+                           intra_frames_per_launch=4, tile_cols=2,
+                           tile_rows=2, scaling_lists=True),
+             fast_video(6, 144, 176), False),
+            (EncoderConfig(scaling_lists=True, **small),
+             synthetic_video(5, 144, 176, plants=8, diverge=32, quads=32),
              False)):
         name = cfg.rd_mode.name if cfg.bitrate_mode == BitrateMode.FIXED_QP \
             else cfg.bitrate_mode.name + ("+WPP" if cfg.wpp_substreams
                                           else "")
         if cfg.num_ref_frames == 2:
             name += "+2ref"
+        if cfg.intra_period == 1:
+            name += f"+all-intra+tiles{cfg.tiles}"
+        if cfg.scaling_lists:
+            name += "+scaling-lists"
         res = {}
         for dev in ("cuda", "cpu"):
             enc = Encoder(cfg, device=dev)
@@ -362,6 +388,8 @@ def phase_cpu_parity():
         if sync:
             assert res["cuda"][1] == [i in (0, 5) for i in
                                       range(len(frames))], res["cuda"][1]
+        if cfg.intra_period == 1:
+            assert all(res["cuda"][1]), res["cuda"][1]
         if cfg.bitrate_mode == BitrateMode.CBR:
             assert len(set(res["cuda"][3][1:])) >= 2, \
                 f"CBR kept one P-frame QP: {res['cuda'][3]}"
@@ -558,6 +586,64 @@ def phase_two_ref(n_p=8):
     return counts, per_frame
 
 
+def phase_all_intra(k=8, size=(1280, 720), tiles=(4, 3), n_steps=(146, 38)):
+    """This slice's path: all-intra with tile_auto (at 720p a 4x3 grid:
+    146 wavefront steps become 38) and the default scaling lists, one
+    chunk of k frames, then the first frame alone.  No kernel may
+    launch.  Returns the numbers it prints."""
+    cfg = EncoderConfig(width=size[0], height=size[1], qp=32,
+                        intra_period=1, tile_auto=True, scaling_lists=True,
+                        intra_frames_per_launch=k)
+    assert cfg.tiles == tiles, cfg.tiles
+    slots = (cfg.padded_width // 32, cfg.padded_height // 32, 2)
+    steps = {t: schedule.wavefront_schedule(*slots, t)[1]
+             for t in (None, cfg.tiles)}
+    assert (steps[None], steps[cfg.tiles]) == n_steps, steps
+    frames = fast_video(k, cfg.height, cfg.width)
+    enc = Encoder(cfg)
+    recon = []
+    real = enc._dispatch_i_chunk
+
+    def spy(fr):
+        pend = real(fr)
+        recon.append(pend["out"]["recon_y"][:len(fr)])
+        return pend
+    enc._dispatch_i_chunk = spy
+    kernels.reset_launch_counts()
+    with StepProbe(which=10) as probe:
+        t0 = time.perf_counter()
+        out = encode_all(enc, frames)
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - t0
+    step_k = probe.replay()
+    with StepProbe(which=10) as probe:
+        t0 = time.perf_counter()
+        one = Encoder(cfg).encode(*frames[0], compute_recon=False)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+    step_1 = probe.replay()
+    counts = kernels.launch_counts()
+    assert not any(counts.values()), f"the all-intra path launched {counts}"
+    assert len(out) == k and all(f._is_idr for f in out), len(out)
+    assert one.nalus == out[0].nalus, "one frame alone != its chunk's bytes"
+    rec = recon[0].cpu().numpy()[:, :cfg.height, :cfg.width]
+    psnrs = [float(psnr(f[0], r)) for f, r in zip(frames, rec)]
+    assert all(28.0 < p < 60.0 for p in psnrs), psnrs
+    assert step_k["slots"] == k * step_1["slots"], (step_k, step_1)
+    res = dict(steps_untiled=steps[None], steps_tiled=steps[cfg.tiles],
+               chunk_s=chunk_s, s_per_frame=chunk_s / k, one_frame_s=one_s,
+               bits=[f.bits for f in out], psnr_y=psnrs,
+               step_k8=step_k, step_k1=step_1)
+    log(f"[all_intra] {cfg.width}x{cfg.height} QP32 tiles {cfg.tiles} "
+        f"scaling lists: "
+        f"wavefront steps {steps[cfg.tiles]} (untiled {steps[None]}); "
+        f"chunk of {k} {chunk_s:.3f}s ({chunk_s / k:.3f}s per frame), one "
+        f"frame alone {one_s:.3f}s; bits {res['bits']}; Y PSNR "
+        f"{[round(p, 2) for p in psnrs]}; step 10 again: {k} frames "
+        f"{step_k}, 1 frame {step_1}; launches {counts}")
+    return res
+
+
 def hold_against_plain(per_frame, what: str) -> int:
     """Every recorded kernel call against its plain version; returns the
     largest difference (0, or it raises)."""
@@ -696,6 +782,7 @@ def main():
     fast_counts, fast_calls = phase_main()
     phase_cbr()
     counts, per_frame = phase_two_ref()
+    phase_all_intra()
     # the kernels line reports this slice's path (two references,
     # rd=FULL); each row also carries the rd=FAST path's numbers
     fast = {r["name"]: r for r in kernel_report(fast_counts, fast_calls)}
@@ -713,7 +800,7 @@ def main():
                 f"{x['ms_spread'][1]:.4f}, plain {x['plain_ms']:.4f}, "
                 f"library {lib}, bound {x['bound_ms']:.5f} "
                 f"{r['bound_by']}), {x['launches']} launches")
-    log(f"[time] phases 1-7 {time.perf_counter() - t0:.1f}s")
+    log(f"[time] phases 1-8 {time.perf_counter() - t0:.1f}s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

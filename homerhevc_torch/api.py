@@ -5,12 +5,16 @@ default) produces one packed int16 record per frame; a host worker thread
 pulls it (one device->host copy per chunk) and the native C++ library
 entropy-codes it, overlapping the device compute of the next chunk.
 
-Supported configuration: IPPP (intra_period > 1) at every rd_mode
+Supported configuration: IPPP (intra_period > 1 or 0) and all-intra
+streams (intra_period == 1: chunks of intra_frames_per_launch
+independent I frames, each wavefront step running the chunk's frames
+together, with tiles where cfg.tiles gives a grid) at every rd_mode
 (rd=FAST, the default; rd=ULTRAFAST; rd=FULL, whose I frame refines the
 top-3 intra modes by full RD), one or two reference frames, single
 device; fixed QP or CBR/VBR rate control, per-CTU QP with cu_qp_delta
-(under CBR/VBR or adaptive_qp), WPP substreams.  Tiles, scaling lists,
-all-intra chunks and more than one chip raise NotImplementedError.
+(under CBR/VBR or adaptive_qp), WPP substreams, flat quantization or
+the default scaling lists.  More than one chip or host raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -50,17 +54,8 @@ def _pad_plane(p: np.ndarray, mult: int) -> np.ndarray:
 
 def check_supported(cfg: EncoderConfig):
     """Raise NotImplementedError for configurations outside the port."""
-    bad = []
-    if cfg.tile_cols > 1 or cfg.tile_rows > 1 or cfg.tile_auto:
-        bad.append("tiles")
-    if cfg.scaling_lists:
-        bad.append("scaling_lists")
     if cfg.num_chips > 1 or cfg.num_hosts > 1:
-        bad.append("num_chips/num_hosts > 1")
-    if cfg.intra_period == 1:
-        bad.append("all-intra (intra_period == 1) chunks")
-    if bad:
-        raise NotImplementedError("not ported yet: " + ", ".join(bad))
+        raise NotImplementedError("not ported yet: num_chips/num_hosts > 1")
 
 
 def state_from_numpy(state: dict, device) -> dict:
@@ -129,7 +124,7 @@ class Encoder:
             merge_rounds=1 if ultra else 2,
             fallback_rounds=1 if ultra else 2,
             quadtree_majority=not ultra, inter_nxn=not ultra,
-            true_size=cfg.code_true_size)
+            scaling_lists=cfg.scaling_lists, true_size=cfg.code_true_size)
 
     def control(self, cfg: EncoderConfig):
         """Reconfigure mid-stream (drains in-flight work first)."""
@@ -152,10 +147,18 @@ class Encoder:
     def encode_async(self, y: np.ndarray, u: np.ndarray, v: np.ndarray
                      ) -> list:
         """Pipelined encode: buffers up to cfg.frames_per_launch P frames
-        into one device chunk, entropy-coding the previous chunk on the
-        host worker meanwhile.  Returns newly completed CodedFrames;
-        drain the tail with flush()."""
+        (all-intra: cfg.intra_frames_per_launch I frames) into one device
+        chunk, entropy-coding the previous chunk on the host worker
+        meanwhile.  Returns newly completed CodedFrames; drain the tail
+        with flush()."""
         done = []
+        if self.cfg.intra_period == 1:
+            # all-intra: the frames are independent, chunk them too
+            self._inbuf.append((y, u, v))
+            if len(self._inbuf) >= max(self.cfg.intra_frames_per_launch, 1):
+                done += self._flush_inbuf()
+            done += self._drain(keep=1)
+            return done
         next_poc = self._poc + len(self._inbuf)
         is_idr = (self.cfg.intra_period > 1
                   and next_poc % self.cfg.intra_period == 0) or \
@@ -204,22 +207,23 @@ class Encoder:
         self._rc.end_pic(fr.bits, is_idr, avg_dist=fr._dist,
                          qp=getattr(fr, "_qp", None))
         if (not is_idr and self.cfg.scene_change_reinit
-                and fr._intra_frac > 0.5):
+                and self.cfg.intra_period != 1 and fr._intra_frac > 0.5):
             self._force_idr = True
 
     def _flush_inbuf(self) -> list:
         if self._inbuf:
             frames = self._inbuf
             self._inbuf = []
-            self._pending.append(self._submit(
-                self._dispatch_p_chunk(frames)))
+            dispatch = self._dispatch_i_chunk if self.cfg.intra_period == 1 \
+                else self._dispatch_p_chunk
+            self._pending.append(self._submit(dispatch(frames)))
         return self._drain(keep=1)
 
     def _dispatch(self, y, u, v, compute_recon):
         """Single-frame dispatch (synchronous encode path)."""
         cfg = self.cfg
-        is_idr = (cfg.intra_period > 1
-                  and self._poc % cfg.intra_period == 0) or \
+        is_idr = cfg.intra_period == 1 or \
+            (cfg.intra_period > 1 and self._poc % cfg.intra_period == 0) or \
             self._ref is None or self._force_idr
         self._force_idr = False
         if is_idr:
@@ -238,9 +242,20 @@ class Encoder:
         ev.record()
         return ev
 
-    def _dispatch_i(self, y, u, v, compute_recon=False):
+    def _i_knobs(self) -> dict:
+        """The I frame's knobs (one I frame or an all-intra chunk)."""
         cfg = self.cfg
-        ctu = cfg.ctu_size
+        return dict(
+            ctu=cfg.ctu_size, sign_hiding=cfg.sign_hiding,
+            deblocking=cfg.deblocking, sao_enabled=cfg.sao,
+            search_8x8=self._search_8x8, search_nxn=self._search_nxn,
+            tu_split=self._tu_split, rd_refine=self._rd_refine,
+            scaling_lists=cfg.scaling_lists, tiles=cfg.tiles,
+            chroma_qp_offset=cfg.chroma_qp_offset, vis_h=cfg.height,
+            vis_w=cfg.width, true_size=cfg.code_true_size)
+
+    def _dispatch_i(self, y, u, v, compute_recon=False):
+        ctu = self.cfg.ctu_size
         yp = _pad_plane(np.asarray(y, np.uint8), ctu)
         up = _pad_plane(np.asarray(u, np.uint8), ctu // 2)
         vp = _pad_plane(np.asarray(v, np.uint8), ctu // 2)
@@ -248,13 +263,7 @@ class Encoder:
         self._gop_poc = 0
         out = intra_frame.encode_frame(
             self._to_dev(yp), self._to_dev(up), self._to_dev(vp), qp=qp,
-            ctu=ctu, sign_hiding=cfg.sign_hiding,
-            deblocking=cfg.deblocking, sao_enabled=cfg.sao,
-            search_8x8=self._search_8x8, search_nxn=self._search_nxn,
-            tu_split=self._tu_split, rd_refine=self._rd_refine,
-            chroma_qp_offset=cfg.chroma_qp_offset,
-            vis_h=cfg.height,
-            vis_w=cfg.width, true_size=cfg.code_true_size)
+            **self._i_knobs())
         self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
         self._ref2 = None
         pend = dict(kind="i", out=out, qp=qp, poc=self._poc,
@@ -263,6 +272,29 @@ class Encoder:
                     event=self._mark())
         self._poc += 1
         self._gop_poc += 1
+        return pend
+
+    def _dispatch_i_chunk(self, frames):
+        """An all-intra chunk: intra_frames_per_launch independent I
+        frames at one QP in one encode_i_chunk call; a partial chunk is
+        padded with its last frame (whose extra copies are not coded)."""
+        ctu = self.cfg.ctu_size
+        n_real = len(frames)
+        k = max(self.cfg.intra_frames_per_launch, 1)
+        frames = list(frames) + [frames[-1]] * (k - n_real)
+        planes = [self._to_dev(np.stack([
+            _pad_plane(np.asarray(f[i], np.uint8), ctu if i == 0 else ctu // 2)
+            for f in frames])) for i in range(3)]
+        qp = self._rc.start_pic(True)
+        out = intra_frame.encode_i_chunk(*planes, qp, **self._i_knobs())
+        self._ref = (out["recon_y"][-1], out["recon_u"][-1],
+                     out["recon_v"][-1])
+        self._ref2 = None
+        pend = dict(kind="i_chunk", out=out, qp=qp, poc=self._poc,
+                    gop_poc=0, padded=tuple(planes[0].shape[1:]), n=n_real,
+                    orig=None, event=self._mark())
+        self._poc += n_real
+        self._gop_poc = 1
         return pend
 
     def _dispatch_p_chunk(self, frames, compute_recon=False, k=None):
@@ -324,6 +356,10 @@ class Encoder:
         cfg = self.cfg
         if pend["kind"] == "i":
             yield pend, self._i_record(packed, pend, cfg), True
+        elif pend["kind"] == "i_chunk":
+            for k in range(pend["n"]):
+                pk = dict(pend, poc=pend["poc"] + k, gop_poc=0, k=k)
+                yield pk, self._i_record(packed[k], pk, cfg), True
         else:
             for k in range(pend["n"]):
                 pk = dict(pend, poc=pend["poc"] + k,
@@ -404,6 +440,11 @@ class Encoder:
         eq_l[:, 1:] = (allp[:, 1:] == allp[:, :-1]).all(-1)
         eq_u = np.zeros((ctus_y, ctus_x), bool)
         eq_u[1:, :] = (allp[1:] == allp[:-1]).all(-1)
+        # no merge across a tile boundary (spec 7.3.8.3 leftCtbInTile /
+        # upCtbInTile: the writer emits no merge flag there)
+        av_l, av_u = sao_ops.avail_lu_np(ctus_y, ctus_x, self.cfg.tiles)
+        eq_l &= av_l
+        eq_u &= av_u
         merge = np.where(eq_l, 1, np.where(eq_u, 2, 0)).astype(np.uint8)
         sao_merge = np.zeros(nctu, np.uint8)
         sao_merge[:n_real] = merge.reshape(-1)

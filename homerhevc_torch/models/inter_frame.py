@@ -5,8 +5,9 @@ Port of homerhevc_tpu/models/inter_frame.py (`encode_p_frame`,
 pictures and one device, at the knobs of the reference's speed ladder
 (rd=FULL's P frame is rd=FAST's), with a slice QP per frame and an
 optional per-CTU QP map (cu_qp_delta; WPP substreams reset the
-deblocking QP chain per CTU row); the serial intra-fallback pass
-(fallback_serial) is not ported.
+deblocking QP chain per CTU row), flat quantization or the default
+scaling lists (scaling_lists, in every TQ call); the serial
+intra-fallback pass (fallback_serial) is not ported.
 
 QP and lambda are per 16-block tensors ([nb], built once per frame from
 the map) in every RD decision, except motion estimation, the
@@ -70,12 +71,14 @@ def _put_rows(dst: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
     return out
 
 
-def _tq(resid, size, qp, is_intra, sbh_scan):
+def _tq(resid, size, qp, is_intra, sbh_scan, scaling=False):
     coeff = transform.forward_transform(resid, size)
-    level, du = quant.quantize(coeff, qp, size, is_intra=is_intra)
+    level, du = quant.quantize(coeff, qp, size, is_intra=is_intra,
+                               scaling=scaling)
     if sbh_scan is not None:
         level = quant.sign_bit_hide(level, du, sbh_scan, size)
-    deq = quant.dequantize(level, qp, size, is_intra=is_intra)
+    deq = quant.dequantize(level, qp, size, is_intra=is_intra,
+                           scaling=scaling)
     return level.to(torch.int32), transform.inverse_transform(deq, size)
 
 
@@ -123,12 +126,13 @@ def merge_candidate_fields(mv_grid, med=None):
     return [(left, True), (top, True), (glob, True), (zero, False)]
 
 
-def _cand_rd(cur_c, preds, qp, lam, s, sbh_scan, bits_mv, nc, n, inv=None):
+def _cand_rd(cur_c, preds, qp, lam, s, sbh_scan, bits_mv, nc, n, inv=None,
+             scaling=False):
     """TQ + zero-residual fold + cost of nc candidate predictions (qp,
     lam: per block [n]).  Returns (level, recon [nc*n, S, S], cost
     [nc, n])."""
     qp = qp.repeat(nc)
-    level, rr = _tq(cur_c - preds, s, qp, False, sbh_scan)
+    level, rr = _tq(cur_c - preds, s, qp, False, sbh_scan, scaling)
     recon = (preds + rr).clamp(0, 255)
     ssd_coded = _ssd(recon, cur_c).reshape(nc, n)
     ssd_zero = _ssd(preds, cur_c).reshape(nc, n)
@@ -149,7 +153,7 @@ def _cand_rd(cur_c, preds, qp, lam, s, sbh_scan, bits_mv, nc, n, inv=None):
 
 def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
                    lam, s, sbh_scan, cand_fields, inv=None, carry_in=None,
-                   ref_grid=None, ref_pads=None):
+                   ref_grid=None, ref_pads=None, scaling=False):
     """Merge/skip RD arbitration: every candidate MV (left, top, own,
     global, zero) gets an exact prediction, a full T/Q/IQ/IT
     reconstruction and a forced-zero-residual variant; the per-block
@@ -180,7 +184,7 @@ def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
     bits_lt = torch.full((2, n), 3.0, device=dev)
     lvl_lt, rec_lt, cost_lt = _cand_rd(cur_b.repeat(2, 1, 1), lt_pred, qp,
                                        lam, s, sbh_scan, bits_lt, 2, n,
-                                       inv=inv)
+                                       inv=inv, scaling=scaling)
     if carry_in is None:
         med = cand_fields[2][0][0, 0]
         glob_pred = _blocks(_mc_plane_luma(ref_pad, med, 0, h, w), s)
@@ -199,7 +203,7 @@ def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
                                 rdbits.mvd_bits(-left_f) + 5.0], 0)
         lvl_ogz, rec_ogz, cost_ogz = _cand_rd(
             cur_b.repeat(3, 1, 1), ogz_pred, qp, lam, s, sbh_scan, bits_ogz,
-            3, n, inv=inv)
+            3, n, inv=inv, scaling=scaling)
         ogz_ref = None if own_ref is None else torch.cat(
             [own_ref, torch.zeros_like(own_ref).repeat(2)])
         fixed = (ogz_mv, ogz_pred, lvl_ogz, rec_ogz, cost_ogz, ogz_ref)
@@ -255,7 +259,8 @@ def _join_quads64(q):
 
 def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
                     elig_tile, qp, lam, bh, bw, n: int, sbh16, sbh32,
-                    inv=None, coded=None, ref_pad=None, ref_flat=None):
+                    inv=None, coded=None, ref_pad=None, ref_flat=None,
+                    scaling=False):
     """Fold n x n groups of 16x16 tiles into one (16n)^2 CU when the
     parent RD (32 TB / four 16 TBs / zero residual; four 32 TBs at n=4)
     beats the children.  MV-uniform groups reuse the children's
@@ -324,7 +329,7 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
 
     if n == 2:
         l16, rr16 = _tq((o_tiles - pred_t).reshape(-1, 16, 16), 16,
-                        qp_tile, False, sbh16)
+                        qp_tile, False, sbh16, scaling)
         rec16 = (pred_t.reshape(-1, 16, 16) + rr16).clamp(0, 255)
         l16 = l16.reshape(g, n * n, 16, 16)
         rec16 = rec16.reshape(g, n * n, 16, 16)
@@ -341,7 +346,7 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
     if n == 4:
         q = _split_quads64(orig_big - pred_big)
         qp_q = torch.repeat_interleave(qp_g, 4)
-        lB, rrB = _tq(q, 32, qp_q, False, sbh32)
+        lB, rrB = _tq(q, 32, qp_q, False, sbh32, scaling)
         recB = (_split_quads64(pred_big) + rrB).clamp(0, 255)
         rbB = f32.row_sum(rdbits.residual_bits(lB, 32, qp=qp_q)
                           .reshape(g, 4))
@@ -349,7 +354,8 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
         rec_big = _join_quads64(recB)
         cbf_big_q = (lB != 0).any(-1).any(-1).reshape(g, 4)
     else:
-        lvl_big, rrB = _tq(orig_big - pred_big, 32, qp_g, False, sbh32)
+        lvl_big, rrB = _tq(orig_big - pred_big, 32, qp_g, False, sbh32,
+                           scaling)
         rec_big = (pred_big + rrB).clamp(0, 255)
         rbB = rdbits.residual_bits(lvl_big, 32, qp=qp_g)
         cbf_big_q = (lvl_big != 0).any(-1).any(-1)[:, None]
@@ -418,7 +424,8 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
 
 def quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y, cost16,
                          excl, qp, lam, bh: int, bw: int, sign_hiding: bool,
-                         inv=None, coded=None, ref_pad=None, ref_flat=None):
+                         inv=None, coded=None, ref_pad=None, ref_flat=None,
+                         scaling=False):
     """Bottom-up CU consolidation 16 -> 32 -> 64 with TU RDO (qp, lam:
     per tile [nb]; ref_pad: non-uniform groups at their majority MV;
     ref_flat: the per-tile reference, ref_pad then stacked).  Returns
@@ -433,14 +440,15 @@ def quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y, cost16,
     (mv_flat, level_y, recon_y, pred_sel, cost32, take32, cbf32_t, trd32,
      tidx32) = _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y,
                                cost16, excl, qp, lam, bh, bw, 2, sbh16,
-                               sbh32, inv, coded, ref_pad, ref_flat)
+                               sbh32, inv, coded, ref_pad, ref_flat, scaling)
     cost32_tile = torch.zeros((bh * bw,), dtype=torch.float32, device=dev)
     cost32_tile[tidx32.reshape(-1)] = torch.repeat_interleave(
         cost32 / 4.0, 4)
     (mv_flat, level_y, recon_y, pred_sel, cost64, take64, cbf64_t, trd64,
      tidx64) = _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y,
                                cost32_tile, excl, qp, lam, bh, bw, 4,
-                               sbh16, sbh32, inv, coded, ref_pad, ref_flat)
+                               sbh16, sbh32, inv, coded, ref_pad, ref_flat,
+                               scaling)
     cu_depth = torch.full((bh * bw,), 2, dtype=torch.int32, device=dev)
     tr_depth = torch.zeros((bh * bw,), dtype=torch.int32, device=dev)
     cbf_y = (level_y != 0).any(-1).any(-1)
@@ -727,7 +735,8 @@ def _neigh8(g: torch.Tensor) -> torch.Tensor:
 
 
 def _intra_fallback_luma(cur_b, recon_y, level_y, cbf_y, inter_pred, qp,
-                         s, bh, bw, h, w, sbh_scan, rounds, inv, geom):
+                         s, bh, bw, h, w, sbh_scan, rounds, inv, geom,
+                         scaling=False):
     """Luma of the intra fallback: up to _FALLBACK_CAP inter CUs per round
     become intra CUs, over `rounds` batched passes.  Candidates: blocks
     whose DC-prediction SAD beats 0.75 x the inter SAD and whose
@@ -782,7 +791,8 @@ def _intra_fallback_luma(cur_b, recon_y, level_y, cbf_y, inter_pred, qp,
                                                     dtype=torch.int32)
         best = torch.argmin(sads, -1)
         pred_sel = preds[torch.arange(kcap, device=dev), best]
-        lvl, rr = _tq(cur_sel - pred_sel, s, qp[sel], True, sbh_scan)
+        lvl, rr = _tq(cur_sel - pred_sel, s, qp[sel], True, sbh_scan,
+                      scaling)
         rec = (pred_sel + rr).clamp(0, 255)
         recon_y = _put_rows(recon_y, sel, ok, rec)
         level_y = _put_rows(level_y, sel, ok, lvl)
@@ -795,7 +805,8 @@ def _intra_fallback_luma(cur_b, recon_y, level_y, cbf_y, inter_pred, qp,
 
 
 def _intra_fallback_chroma(rec_blocks, orig_blocks, level_c, cbf_c, sel,
-                           ok, best, cs, bh, bw, h, w, qp_c, scan, geom):
+                           ok, best, cs, bh, bw, h, w, qp_c, scan, geom,
+                           scaling=False):
     """Chroma (DM) of one fallback round in one plane, after the inter
     chroma pass, so its references are the final reconstruction (qp_c:
     per block [nb])."""
@@ -809,7 +820,8 @@ def _intra_fallback_chroma(rec_blocks, orig_blocks, level_c, cbf_c, sel,
         _gather_adi_blocks(cbuf, py, px, cs),
         _fallback_avail(bw, bh, cs, geom, dev)[sel])
     pred = intra.predict_single_mode(adi, best, cs, False)
-    lvl, rr = _tq(orig_blocks[sel] - pred, cs, qp_c[sel], True, scan)
+    lvl, rr = _tq(orig_blocks[sel] - pred, cs, qp_c[sel], True, scan,
+                  scaling)
     rec = (pred + rr).clamp(0, 255)
     return (_put_rows(rec_blocks, sel, ok, rec),
             _put_rows(level_c, sel, ok, lvl),
@@ -817,28 +829,32 @@ def _intra_fallback_chroma(rec_blocks, orig_blocks, level_c, cbf_c, sel,
                       (lvl != 0).any(-1).any(-1)).reshape(bh, bw))
 
 
+def _maybe_scene(sad_me, cand_count, h: int, w: int):
+    """The cheap scene-change signals: many fallback candidates, or a
+    mean ME cost above 6 per pixel (sad_me [h/16, w/16] float32, summed
+    in XLA-CPU's order and divided as the reference does, ops/f32)."""
+    nb16 = (h // 16) * (w // 16)
+    mean_sad_px = f32.grid_sum(sad_me.reshape(h // 16, w // 16)) \
+        * float(np.float32(1.0 / (h * w)))
+    return (cand_count > nb16 // 4) | (mean_sad_px > 6.0)
+
+
 def _intra_pref_count(cur, sad_me, cand_count, qpt, ctu: int):
     """The frame's intra-preference count for the scene-change restart:
     blocks whose dense 35-mode SATD cost beats the ME cost, counted when
-    the cheap signals suggest a scene change (many fallback candidates,
-    or a mean ME cost above 6 per pixel), else 0.  The dense pass always
-    runs and the count is selected on the device: no host sync.  The
-    mean sums the float32 costs in float64; the reference's float32 sum
-    (whose order XLA picks by shape) can differ from it only where it
-    rounds across the threshold."""
+    the cheap signals suggest a scene change (_maybe_scene), else 0.  The
+    dense pass always runs and the count is selected on the device: no
+    host sync."""
     h, w = cur.shape
-    nb16 = (h // 16) * (w // 16)
     sqrt_lam = torch.sqrt(rdbits.rd_lambda_f32(qpt, True))
     _, ip_cost = intra_frame._dense_best(cur, 16, ctu, sqrt_lam)
     count = (ip_cost.reshape(-1) < sad_me.reshape(-1)).sum(dtype=torch.int32)
-    mean_sad_px = sad_me.to(torch.float64).sum() / float(h * w)
-    maybe_scene = (cand_count > nb16 // 4) | (mean_sad_px > 6.0)
-    return torch.where(maybe_scene, count, 0)
+    return torch.where(_maybe_scene(sad_me, cand_count, h, w), count, 0)
 
 
 def _split8(cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
             cbf_y, is_intra, dil, inv16, qp_t, lam_t, sign_hiding,
-            ref_sel=None):
+            ref_sel=None, scaling=False):
     """8x8 inter CUs: 16x16 blocks with divergent motion re-code as four
     8x8 CUs with their own MVs (+-3 integer pel around the CU's MV,
     keeping its subpel phase) and 8x8 TBs, when the RD with the split's
@@ -893,7 +909,7 @@ def _split8(cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
         if sign_hiding else None
     qp_q = torch.repeat_interleave(qp_t[bsel], 4)
     lam_q = torch.repeat_interleave(lam_t[bsel], 4)
-    lvl8, rr8 = _tq(cur8 - pred8, 8, qp_q, False, sbh8)
+    lvl8, rr8 = _tq(cur8 - pred8, 8, qp_q, False, sbh8, scaling)
     rec8 = (pred8 + rr8).clamp(0, 255)
     lvl8, rec8 = _rd_zero(lvl8, rec8, pred8, cur8, lam_q, qp=qp_q)
     rec_nxn = asm8(rec8)
@@ -940,7 +956,7 @@ def _chroma_plane_index(ref, n: int, device) -> torch.Tensor:
 
 def _code_chroma(u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c,
                  lam_cs, cs: int, bh: int, bw: int, sbh_scan_c,
-                 sign_hiding: bool, inv16, ref_sel=None):
+                 sign_hiding: bool, inv16, ref_sel=None, scaling=False):
     """Chroma coding at the final MVs (and references, ref_sel [nb]): one
     16x16 chroma TB where the luma TB is 32-wide, else four 8x8 TBs;
     both planes' MC windows come from ONE plane-indexed gather.  qp_c,
@@ -979,13 +995,14 @@ def _code_chroma(u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c,
         cpred = interp.mc_chroma_phases(cw2[p], mv_f[:, 0] & 7,
                                         mv_f[:, 1] & 7, cs)
         cb = _blocks(plane, cs)
-        lvl8, rr8 = _tq(cb - cpred, cs, qp_c, False, sbh_scan_c)
+        lvl8, rr8 = _tq(cb - cpred, cs, qp_c, False, sbh_scan_c, scaling)
         rec8 = (cpred + rr8).clamp(0, 255)
         lvl8, rec8 = _rd_zero(lvl8, rec8, cpred, cb, lam_cs, inv=inv16,
                               qp=qp_c)
         pred16 = asm(cpred)
         orig16 = asm(cb)
-        lvl16c, rr16c = _tq(orig16 - pred16, 2 * cs, qp_cg, False, scan16)
+        lvl16c, rr16c = _tq(orig16 - pred16, 2 * cs, qp_cg, False, scan16,
+                            scaling)
         rec16c = (pred16 + rr16c).clamp(0, 255)
         lvl16c, rec16c = _rd_zero(lvl16c, rec16c, pred16, orig16, lam_cg,
                                   inv=inv16g, qp=qp_cg)
@@ -1002,7 +1019,8 @@ def _code_chroma(u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_c,
 
 def _split8_chroma(u32, v32, cplanes, nxn16, mv8_pu, pos_y, pos_x, lvl_c,
                    rec_c, cbf_c, qp_c, lam_cs, cs: int, bh: int,
-                   bw: int, sign_hiding: bool, ref_sel=None):
+                   bw: int, sign_hiding: bool, ref_sel=None,
+                   scaling=False):
     """Chroma of the 8x8 split CUs: each sub-CU's 4x4 chroma TB, MC'd at
     its own MV (compacted to _NXN_CAP blocks), overwrites the TB8 result
     (qp_c, lam_cs: per block [nb]).  Returns (lvl_c, rec_c, cbf_c,
@@ -1045,7 +1063,7 @@ def _split8_chroma(u32, v32, cplanes, nxn16, mv8_pu, pos_y, pos_x, lvl_c,
         if sign_hiding else None
     qpc_sel = torch.repeat_interleave(qp_c[bsel], 4).repeat(2)
     lamc_sel = torch.repeat_interleave(lam_cs[bsel], 4).repeat(2)
-    lvl4, rr4 = _tq(orig4 - pn, 4, qpc_sel, False, scan4)
+    lvl4, rr4 = _tq(orig4 - pn, 4, qpc_sel, False, scan4, scaling)
     rec4 = (pn + rr4).clamp(0, 255)
     lvl4, rec4 = _rd_zero(lvl4, rec4, pn, orig4, lamc_sel, qp=qpc_sel)
     cbf4 = (lvl4 != 0).any(-1).any(-1)                 # [2*4capb]
@@ -1091,8 +1109,6 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     cbf, `packed`, `packed_full`; `ref_idx` with two references)."""
     if fallback_serial:
         raise NotImplementedError("serial intra-fallback pass")
-    if scaling_lists:
-        raise NotImplementedError("scaling lists")
     if unsupported:
         raise NotImplementedError(f"options {sorted(unsupported)}")
     h, w = y.shape
@@ -1199,7 +1215,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                                qp_t, lam_t, s, sbh_scan,
                                merge_candidate_fields(mv), inv=inv16,
                                carry_in=carry, ref_grid=ref_sel,
-                               ref_pads=ref_pads)
+                               ref_pads=ref_pads, scaling=scaling_lists)
             mv = mv_flat.reshape(bh, bw, 2)
             if multi_ref:
                 ref_sel = carry["ref"].reshape(bh, bw)
@@ -1216,7 +1232,8 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
             (recon_y, level_y, cbf_y, is_intra, intra_modes, cand_count,
              fb_rounds) = _intra_fallback_luma(
                 cur_b, recon_y, level_y, cbf_y, pred_sel, qp_t, s, bh, bw,
-                h, w, sbh_scan, fallback_rounds, inv16, geom_l)
+                h, w, sbh_scan, fallback_rounds, inv16, geom_l,
+                scaling_lists)
         with record_function("p.intra_pref"):
             cand_count = torch.maximum(
                 cand_count, _intra_pref_count(cur, sad_me, cand_count, qpt,
@@ -1233,7 +1250,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
             nxn16, mv8_pu, cbf8q, level_y, recon_y, cbf_y, cost16 = _split8(
                 cur, cur_b, ref_pad_sel, mv, pred_sel, cost16, level_y,
                 recon_y, cbf_y, is_intra, dil, inv16, qp_t, lam_t,
-                sign_hiding, ref_sel=ref_flat)
+                sign_hiding, ref_sel=ref_flat, scaling=scaling_lists)
 
     with record_function("p.quadtree"):
         mv, level_y, recon_y, cbf_y, cu_depth, tr_depth, chroma16 = \
@@ -1242,7 +1259,8 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                                  lam_t,
                                  bh, bw, sign_hiding, inv=inv16, coded=coded,
                                  ref_pad=ref_pad_sel if quadtree_majority
-                                 else None, ref_flat=ref_flat)
+                                 else None, ref_flat=ref_flat,
+                                 scaling=scaling_lists)
         # split blocks become four 8x8 CUs (depth 3, TU8 leaves)
         cu_depth = torch.where(nxn16.reshape(bh, bw), 3, cu_depth) \
             .to(torch.int32)
@@ -1254,13 +1272,14 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                    else _chroma_planes(ref_u, ref_v))
         lvl_c, rec_c, cbf_c = _code_chroma(
             u32, v32, cplanes, mv_f, pos_y, pos_x, chroma16, qp_ct, lam_cs,
-            cs, bh, bw, sbh_scan_c, sign_hiding, inv16, ref_sel=ref_flat)
+            cs, bh, bw, sbh_scan_c, sign_hiding, inv16, ref_sel=ref_flat,
+            scaling=scaling_lists)
         cbf8c = [torch.zeros((4 * nb,), dtype=torch.bool, device=dev)] * 2
         if inter_nxn:
             lvl_c, rec_c, cbf_c, cbf8c = _split8_chroma(
                 u32, v32, cplanes, nxn16, mv8_pu, pos_y, pos_x, lvl_c,
                 rec_c, cbf_c, qp_ct, lam_cs, cs, bh, bw, sign_hiding,
-                ref_sel=ref_flat)
+                ref_sel=ref_flat, scaling=scaling_lists)
 
     if intra_fallback:
         # per round, so a later round's references read the chroma the
@@ -1271,7 +1290,8 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                 for p in range(2):
                     rec_c[p], lvl_c[p], cbf_c[p] = _intra_fallback_chroma(
                         rec_c[p], orig_c[p], lvl_c[p], cbf_c[p], sel, ok,
-                        best, cs, bh, bw, h, w, qp_ct, sbh_scan_c, geom_c)
+                        best, cs, bh, bw, h, w, qp_ct, sbh_scan_c, geom_c,
+                        scaling_lists)
 
     dist16 = (recon_y - cur_b).abs().sum() // nb
     out_y = _unblocks(recon_y, h, w)

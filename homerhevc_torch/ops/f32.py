@@ -12,6 +12,12 @@ formulas with XLA on the CPU, which
   halving tree (x[:n/2] + x[n/2:], repeated),
 * evaluates a cumulative sum in 16-element chunks (a left-to-right prefix
   inside each chunk, then the prefix of the chunk totals added on),
+* sums a whole 2-D grid by first reducing each dimension longer than 32
+  in windows of 32 (zero padding split evenly around the grid), each
+  window element by element in row-major order, then summing what is
+  left: row by row, then over the rows in a halving tree where there
+  are 2, 4 or 8 rows of at most 8, else element by element,
+* divides by a constant as a multiply by its float32 reciprocal,
 * evaluates `2.0 ** y` as the correctly rounded power of two.
 
 The helpers here reproduce those orders with plain tensor ops, so the
@@ -59,6 +65,32 @@ def _seq(cols) -> torch.Tensor:
     for c in cols[1:]:
         acc = acc + c
     return acc
+
+
+def grid_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum of a 2-D grid [r, c] in XLA-CPU's order (jnp.sum of
+    the whole grid; the order was read off XLA's optimised program and
+    checked against it for every multiple-of-4 shape up to 68 x 120)."""
+    r, c = x.shape
+    if r > 32 or c > 32:
+        def window(n):            # (window, padding before, after)
+            if n <= 32:
+                return n, 0, 0
+            pad = -n % 32
+            return 32, pad // 2, pad - pad // 2
+        (wr, lr, hr), (wc, lc, hc) = window(r), window(c)
+        xp = torch.nn.functional.pad(x, (lc, hc, lr, hr))
+        nr, nc = xp.shape[0] // wr, xp.shape[1] // wc
+        win = xp.reshape(nr, wr, nc, wc).permute(0, 2, 1, 3) \
+            .reshape(nr, nc, wr * wc)
+        x = _seq(win.unbind(-1))
+        r, c = nr, nc
+    if r in (2, 4, 8) and c <= 8:
+        x = _seq(x.unbind(-1))
+        while x.shape[0] > 1:
+            x = x[:x.shape[0] // 2] + x[x.shape[0] // 2:]
+        return x[0]
+    return _seq(x.reshape(-1).unbind(0))
 
 
 def cumsum0(x: torch.Tensor) -> torch.Tensor:

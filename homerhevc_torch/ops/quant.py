@@ -1,6 +1,7 @@
 """Bit-exact HEVC quantization / dequantization and sign-bit hiding.
 
-Port of homerhevc_tpu/ops/quant.py with flat scaling.
+Port of homerhevc_tpu/ops/quant.py: flat quantization, or the default
+scaling lists (spec 7.4.5, `scaling=True`; the SPS signals them).
 qp may be a Python int, a 0-d tensor or a per-block tensor [...] that
 broadcasts against [..., N, N] blocks.  Scan reorders are index gathers
 (the reference's permutation matmuls compute the same permutation).
@@ -51,13 +52,35 @@ def _table(name: str, device) -> torch.Tensor:
                            dtype=torch.int32, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _q_matrices(size: int, is_intra: bool, device):
+    """Per-rem factor stacks [6, N, N] of the default scaling lists,
+    uploaded once per device: Q = (quant_scale[rem] << 4) // m and
+    DQ = inv_quant_scale[rem] * m (flat m = 16 gives the flat factors)."""
+    m = tables.scaling_matrix(size, is_intra)
+    q = (np.asarray(tables.QUANT_SCALES)[:, None, None] << 4) // m[None]
+    dq = np.asarray(tables.INV_QUANT_SCALES)[:, None, None] * m[None]
+    return (torch.as_tensor(q.astype(np.int32), device=device),
+            torch.as_tensor(dq.astype(np.int32), device=device))
+
+
+def _scaled(qmat: torch.Tensor, rem: torch.Tensor) -> torch.Tensor:
+    """The [N, N] factors of each block's rem: [..., N, N] for a
+    per-block QP (rem [..., 1, 1]), [N, N] for one QP."""
+    return qmat[rem[..., 0, 0].long()] if rem.dim() > 0 \
+        else qmat[rem.long()]
+
+
 def quantize(coeff: torch.Tensor, qp, size: int, is_intra: bool = True,
-             bit_depth: int = 8):
+             bit_depth: int = 8, scaling: bool = False):
     """Returns (levels int32 [..., N, N], delta_u) — rounding offset
-    171/512 intra, 85/512 inter."""
+    171/512 intra, 85/512 inter; scaling: the default scaling lists."""
     dev = coeff.device
     per, rem, qbits, _ = quant_params(qp, size, dev, bit_depth)
-    q = _table("QUANT_SCALES", dev)[rem.long()]
+    if scaling:
+        q = _scaled(_q_matrices(size, is_intra, dev)[0], rem)
+    else:
+        q = _table("QUANT_SCALES", dev)[rem.long()]
     add = torch.full_like(qbits, 171 if is_intra else 85) << (qbits - 9)
     c = coeff.to(torch.int32)
     absc = c.abs()
@@ -69,13 +92,16 @@ def quantize(coeff: torch.Tensor, qp, size: int, is_intra: bool = True,
 
 
 def dequantize(level: torch.Tensor, qp, size: int, bit_depth: int = 8,
-               is_intra: bool = True):
-    """Inverse quantization (spec 8.6.3)."""
+               is_intra: bool = True, scaling: bool = False):
+    """Inverse quantization (spec 8.6.3), flat or default-list scaled."""
     dev = level.device
     per, rem, _, transform_shift = quant_params(qp, size, dev, bit_depth)
     iq_shift = (tables.QUANT_IQUANT_SHIFT - tables.QUANT_SHIFT
                 - transform_shift + 4)
-    dq = _table("INV_QUANT_SCALES", dev)[rem.long()] * 16
+    if scaling:
+        dq = _scaled(_q_matrices(size, is_intra, dev)[1], rem)
+    else:
+        dq = _table("INV_QUANT_SCALES", dev)[rem.long()] * 16
     lv = level.to(torch.int32)
     sh = torch.clamp(iq_shift - per, min=1)
     down = (lv * dq + (torch.ones_like(sh) << (sh - 1))) >> sh

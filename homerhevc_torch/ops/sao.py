@@ -12,6 +12,7 @@ import functools
 import numpy as np
 import torch
 
+from homerhevc_torch.models.schedule import tile_bounds
 from homerhevc_torch.ops import f32
 
 _EO_NEIGHBORS = ((0, -1, 0, 1), (-1, 0, 1, 0), (-1, -1, 1, 1),
@@ -236,18 +237,34 @@ def sao_component(org, rec, ctb: int, lam, secondary: bool = False,
 
 
 @functools.lru_cache(maxsize=None)
-def _avail_lu_np(by: int, bx: int):
+def avail_lu_np(by: int, bx: int, tiles=None):
+    """([by, bx], [by, bx]) bool: the left / above CTU exists and lies
+    in the same tile (spec 7.3.8.3 leftCtbInTile / upCtbInTile)."""
     av_l = np.ones((by, bx), bool)
     av_l[:, 0] = False
     av_u = np.ones((by, bx), bool)
     av_u[0, :] = False
+    if tiles is not None:
+        for b in tile_bounds(bx, tiles[0])[1:-1]:
+            av_l[:, b] = False
+        for b in tile_bounds(by, tiles[1])[1:-1]:
+            av_u[b, :] = False
     return av_l, av_u
 
 
+@functools.lru_cache(maxsize=None)
+def _avail_lu(by: int, bx: int, tiles, device):
+    """avail_lu_np as tensors on `device`, uploaded once."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in avail_lu_np(by, bx, tiles))
+
+
 def sao_frame(org_y, org_u, org_v, rec_y, rec_u, rec_v, lam_y, lam_c,
-              ctu: int = 64, merge_rdo: bool = True, coded=None):
+              ctu: int = 64, tiles=None, merge_rdo: bool = True,
+              coded=None):
     """Full-frame SAO encode: decide + apply for Y/Cb/Cr.  lam_y/lam_c
-    are float32 0-d tensors.  Returns (new_y, new_u, new_v, fields)."""
+    are float32 0-d tensors; with a (cols, rows) tile grid no CTU merges
+    across a tile boundary.  Returns (new_y, new_u, new_v, fields)."""
     by = bc = None
     if coded is not None:
         by = (coded[0], coded[1])
@@ -262,11 +279,10 @@ def sao_frame(org_y, org_u, org_v, rec_y, rec_u, rec_v, lam_y, lam_c,
     if merge_rdo and t_y.numel() > 1:
         expl = dict(t_y=t_y, off_y=off_y, bp_y=bp_y, t_c=t_c,
                     off_cb=off_cb, bp_cb=bp_cb, off_cr=off_cr, bp_cr=bp_cr)
-        av_l, av_u = _avail_lu_np(t_y.shape[0], t_y.shape[1])
-        dev = rec_y.device
+        av_l, av_u = _avail_lu(t_y.shape[0], t_y.shape[1], tiles,
+                               rec_y.device)
         fin = merge_adopt_rdo(sy, scb, scr, expl, cost_y + cost_c, lam_y,
-                              torch.as_tensor(av_l, device=dev),
-                              torch.as_tensor(av_u, device=dev))
+                              av_l, av_u)
         t_y, off_y, bp_y = fin["t_y"], fin["off_y"], fin["bp_y"]
         t_c, off_cb, bp_cb = fin["t_c"], fin["off_cb"], fin["bp_cb"]
         off_cr, bp_cr = fin["off_cr"], fin["bp_cr"]

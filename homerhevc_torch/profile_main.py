@@ -1,6 +1,7 @@
 """Where the time of the port's main path goes on one CUDA device.
 
     python -m homerhevc_torch.profile_main [qp32] [cbr1250] [full2ref]
+                                           [allintra]
 
 Encodes 1280x720 IPPP (frames_per_launch=4) from seeded synthetic video
 whose content fires the rd=FAST tools, with up to three encoders (all
@@ -22,7 +23,17 @@ p.fallback, p.intra_pref, p.split8, p.quadtree, p.chroma,
 p.fallback_chroma, p.deblock, p.sao, p.pack) and the kernels with the
 most device time.  A last pass over one more P chunk counts the
 host<->device synchronisations, in all and by source line (torch.cuda
-sync debug mode).  Needs a CUDA device.
+sync debug mode).
+
+`allintra` (only when named) encodes 1280x720 all-intra chunks
+(intra_period=1, tile_auto: a 4x3 tile grid, default scaling lists,
+intra_frames_per_launch=8, rd=FAST) on the same video: a warm-up chunk,
+a chunk timed by wall clock, and a chunk with its stages clocked (each
+frame's dense decision and each wavefront step between synchronisations;
+the rest is deblocking, SAO, packing and entropy coding) and one
+wavefront step under torch.profiler (its device operations, the share
+of the step in which the device ran work, its top kernels).  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from homerhevc_torch.api import Encoder
 from homerhevc_torch.config import BitrateMode, EncoderConfig, RDMode
+from homerhevc_torch.models import intra_frame
 from homerhevc_torch.utils.synthetic import synthetic_video
 
 
@@ -125,6 +137,102 @@ def _window(name: str, fn, n_frames: int):
                              for t, k, c in kern])
 
 
+class StepProbe:
+    """Within the block, the arguments of wavefront step number `which`
+    (counted from 1) are kept; replay() runs that step again, after the
+    run (the step only writes its slots into the chunk's buffers): once
+    between two synchronisations for its wall time, once under
+    torch.profiler for its device operations and device-busy share.
+    clock=True also times every dense decision and wavefront step of
+    the run between synchronisations (`clocks`)."""
+
+    def __init__(self, which: int, clock: bool = False):
+        self.which, self.clock = which, clock
+        self.calls = 0
+        self.args = None
+        self.clocks = collections.defaultdict(float)
+
+    def _timed(self, name, fn):
+        def call(*args):
+            if not self.clock:
+                return fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.clocks[name + "_ms"] += (time.perf_counter() - t0) * 1e3
+            self.clocks[name + "_calls"] += 1
+            return out
+        return call
+
+    def __enter__(self):
+        self.real = (intra_frame._wavefront_step, intra_frame._dense_decision)
+        step_t = self._timed("wavefront", self.real[0])
+
+        def step(*args):
+            self.calls += 1
+            if self.calls == self.which:
+                self.args = args
+            return step_t(*args)
+        intra_frame._wavefront_step = step
+        intra_frame._dense_decision = self._timed("dense", self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        intra_frame._wavefront_step, intra_frame._dense_decision = self.real
+
+    def replay(self) -> dict:
+        step = self.real[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*self.args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(*self.args)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        slots = int(self.args[0]["by"].shape[0])
+        self.args = None
+        return dict(step=self.which, slots=slots, device_ops=len(dev),
+                    wall_ms=wall_s * 1e3,
+                    device_busy_share=_busy_us(dev) / (prof_s * 1e6))
+
+
+def all_intra(card: str, size=(1280, 720), k: int = 8):
+    """The all-intra configuration: chunk wall time, stage clocks and one
+    profiled wavefront step (see the module docstring)."""
+    cfg = EncoderConfig(width=size[0], height=size[1], qp=32,
+                        intra_period=1, tile_auto=True, scaling_lists=True,
+                        intra_frames_per_launch=k)
+    frames = synthetic_video(k, size[1], size[0], plants=64, diverge=128,
+                             quads=64)
+    enc = Encoder(cfg)
+
+    def chunk():
+        out = []
+        for f in frames:
+            out.extend(enc.encode_async(*f))
+        out.extend(enc.flush())
+        assert len(out) == k and all(f._is_idr for f in out)
+        return out
+
+    def emit(res):
+        print(json.dumps(dict(res, config="allintra", card=card,
+                              tiles=cfg.tiles)), flush=True)
+    emit(dict(_wall("warmup_chunk", chunk), frames=k))
+    res = _wall("i_chunk", chunk)
+    emit(dict(res, frames=k, s_per_frame=res["wall_ms"] / 1e3 / k))
+    with StepProbe(which=10, clock=True) as probe:
+        res = _wall("i_chunk_clocked", chunk)
+    emit(dict(res, frames=k, stages=dict(probe.clocks),
+              profiled_step=probe.replay()))
+
+
 P_FRAMES = 4
 TURNS = 4            # timed P chunks per configuration, taken in turns
 
@@ -162,6 +270,11 @@ def main():
                "full2ref": EncoderConfig(qp=32, rd_mode=RDMode.RD_FULL,
                                          num_ref_frames=2, **size)}
     pick = sys.argv[1:] or list(configs)
+    if "allintra" in pick:
+        all_intra(card)
+        pick.remove("allintra")
+        if not pick:
+            return
     configs = {c: configs[c] for c in pick}
     n = 1 + (3 + TURNS) * P_FRAMES
     video = dict(plants=64, diverge=128, quads=64)

@@ -157,8 +157,7 @@ def test_encoder_runs_on_cuda_unless_told(monkeypatch):
 
 
 def test_configs_outside_the_port_raise():
-    for kw in [dict(tile_cols=2), dict(scaling_lists=True),
-               dict(num_chips=2), dict(intra_period=1)]:
+    for kw in [dict(num_chips=2), dict(num_hosts=2)]:
         args = dict(SLICE, rd_mode=RDMode.RD_ULTRAFAST)
         args.update(kw)
         with pytest.raises(NotImplementedError):
