@@ -20,12 +20,22 @@ Phases (any failure raises and exits non-zero):
      IDR masked to one reference), under CBR (1 I + 8 P, per-CTU QP with
      cu_qp_delta), under VBR with WPP substreams (1 I + 4 P), all-intra
      with a 2x2 tile grid and the default scaling lists (six frames in
-     chunks of four, the second padded) and IPPP with the default
-     scaling lists (1 I + 4 P): the Annex-B bytes and the
-     reconstructions must be identical;
-  4. the rd=ULTRAFAST path: 1280x720 IPPP at QP32, 1 I + 4 P frames
+     chunks of four, the second padded), IPPP with the default
+     scaling lists (1 I + 4 P), and the IPPP knobs of the console app
+     through homerhevc_torch.cli.main: K1 on its synchronous path
+     (-o-raw, -stats; intra_period 0, performance_mode FULL, half-pel
+     ME, max_pred_depth 3, max_intra_tr_depth 0, no sign hiding, a
+     skipped frame) and K2 through encode_async (integer-pel ME,
+     max_pred_depth 2, no SAO, no deblocking, chroma QP offset -3), and
+     K3 through Encoder (padded-size coding, no P intra fallback, no
+     scene-cut restart, control() to another QP in mid-stream): the
+     Annex-B bytes, the app's raw and stats files and the
+     reconstructions must be identical (the cases run in three processes
+     at once: half the cuda cases here, the other half and the cpu cases
+     in two children, `chip_smoke.py --parity DEV PART PARTS FILE`);
+  4. the rd=ULTRAFAST path: 1280x720 IPPP at QP32, 1 I + 8 P frames
      through Encoder.encode_async/flush: every kernel launched, at the
-     path's shapes;
+     path's shapes; prints P fps;
   5. the default configuration: 1280x720 IPPP at QP32, rd=FAST, 1 I +
      8 P frames through Encoder.encode_async/flush, on video whose
      content fires the P frames' intra fallback and 8x8 split and the I
@@ -55,17 +65,33 @@ Phases (any failure raises and exits non-zero):
      none); prints the wavefront steps with and without the tiles, the
      chunk's and the single frame's seconds, bits and PSNR per frame, and
      the device operations and wall time of one wavefront step at 8
-     frames and at 1 (step 10, run again after its run).
+     frames and at 1 (step 10, run again after its run);
+  9. the console app's path at 720p: (a) `python -m
+     homerhevc_torch` as a subprocess with the README's console flags
+     (CBR at 1250 kbps, 25 fps, 9 frames) on phase 6's video written to a
+     .yuv: its .265 must equal phase 6's bytes; it relays the app's fps
+     and kbps lines; (b) homerhevc_torch.cli.main in-process at rd=
+     ULTRAFAST, performance_mode FULL and half-pel ME on the same file:
+     every kernel launched at the path's shapes, each equal to its plain
+     version on one P frame's recorded inputs; prints the I frame's
+     seconds and P fps.
 The line before the last two is {"kernels": [...]}: per kernel, on one
 phase-7 P frame's inputs, its launches over the phase, error, time
 (median and spread of 5 runs of 50), the plain version's and a PyTorch
-call's time and its bound, and the same for phase 5 (`rd_fast_path`);
+call's time and its bound, and the same for phase 5 (`rd_fast_path`),
+and phase 9(b)'s launches (`cli_path`);
 then the card's name and power limit; the last line of stdout is
 {"ok": true, "device": {...}}.
 """
+import contextlib
+import dataclasses
+import io
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,16 +100,19 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available")
 
+from homerhevc_torch import cli                               # noqa: E402
 from homerhevc_torch.api import Encoder                       # noqa: E402
 from homerhevc_torch.config import (                        # noqa: E402
     BitrateMode, EncoderConfig, RDMode)
 from homerhevc_torch.entropy import binding                   # noqa: E402
-from homerhevc_torch.models import schedule                   # noqa: E402
+from homerhevc_torch.models import (                         # noqa: E402
+    inter_frame, intra_frame, schedule)
 from homerhevc_torch.ops import kernels                       # noqa: E402
 from homerhevc_torch.profile_main import StepProbe            # noqa: E402
 from homerhevc_torch.utils.synthetic import synthetic_video   # noqa: E402
 
 DEV = torch.device("cuda")
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet): device memory
 # 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, used here for
 # the slab search's 32-bit integer sub/abs/add (the card's int32 rate is
@@ -167,7 +196,9 @@ def main_path_calls(cfg):
     name -> list of (n, size, plane shape) or (h, w, bs, ry, rx).  With
     two references ME runs on each, and every luma MC and split8 window
     reads a stack of the R = 2 luma planes, chroma MC one of R = 4
-    (U0, U1, V0, V1).  rd=FULL's P frame is rd=FAST's."""
+    (U0, U1, V0, V1).  rd=FULL's P frame is rd=FAST's.  The ME knobs
+    (performance_mode, motion_estimation_precision) change no call: every
+    subpel offset lies in the one window of block + 9 per block."""
     h, w = cfg.padded_height, cfg.padded_width
     n = (h // 16) * (w // 16)
     pad = 144                                   # me.REF_PAD
@@ -187,9 +218,10 @@ def main_path_calls(cfg):
     calls[mc_name] += [(2 * n, 23, mc_full)] * rounds   # merge left/top
     if cfg.rd_mode != RDMode.RD_ULTRAFAST:
         k = min(512, n)                         # fallback and split caps
-        calls["gather_windows"] += (
-            [(k, 33, (1 + h + 16, 1 + w + 16))] * 2     # fallback ADI x2
-            + [(k, 17, (1 + h // 2 + 8, 1 + w // 2 + 8))] * 4)  # fb chroma
+        if cfg.intra_in_p:
+            calls["gather_windows"] += (
+                [(k, 33, (1 + h + 16, 1 + w + 16))] * 2     # fallback ADI
+                + [(k, 17, (1 + h // 2 + 8, 1 + w // 2 + 8))] * 4)  # chroma
         calls[mc_name] += [
             (4 * k, 14, mc_full), (4 * k, 15, mc_full),  # split8 refine, MC
             ((h // 32) * (w // 32), 39, mc_full),        # quadtree majority
@@ -332,11 +364,138 @@ def fast_video(n, h, w):
     return synthetic_video(n, h, w, plants=64, diverge=128, quads=64)
 
 
-def phase_cpu_parity():
+# The console app's IPPP knobs (homerhevc_torch.cli flags), in two groups
+# that each cost one compile of the JAX reference's programs in the tests:
+# K1 on the app's synchronous path, K2 on its encode_async path.
+K1 = ("-qp 30 -intra_period 0 -performance_mode 0 "
+      "-motion_estimation_precision 1 -max_pred_depth 3 "
+      "-max_intra_tr_depth 0 -sign_hiding 0 -skipped_frames 1 "
+      "-n_frames 5").split()
+K2 = ("-qp 36 -motion_estimation_precision 0 -max_pred_depth 2 -sao 0 "
+      "-deblocking 0 -chroma_qp_offset -3 -frame_rate 30 -n_frames 6").split()
+# K3, the knobs only Encoder reaches; control() switches to QP 27 before
+# frame CONTROL_AT
+K3 = dict(width=176, height=144, code_true_size=False, intra_in_p=False,
+          scene_change_reinit=False)
+CONTROL_AT = 3
+# the README's console example, without its -stats (which would take the
+# synchronous path)
+README_CBR = ("-widthxheight 1280x720 -frame_rate 25 -qp 32 -intra_period "
+              "100 -bitrate_mode 1 -bitrate 1250 -n_frames 9").split()
+CLI_UFAST = ("-widthxheight 1280x720 -qp 32 -rd 2 -performance_mode 0 "
+             "-motion_estimation_precision 1 -n_frames 9").split()
+
+
+def cli_cfg(flags) -> EncoderConfig:
+    return cli.parse_args(flags)[0]
+
+
+def write_yuv(path, frames):
+    with open(path, "wb") as f:
+        for planes in frames:
+            for p in planes:
+                f.write(np.ascontiguousarray(p).tobytes())
+
+
+@contextlib.contextmanager
+def recons_kept():
+    """Keep a host copy of the reconstruction of every frame the frame
+    programs make (a padded chunk's repeats of its last frame included)."""
+    kept = []
+    real = intra_frame.encode_frame, inter_frame.encode_p_frame
+
+    def keep(fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            kept.append([out[f"recon_{p}"].cpu().numpy() for p in "yuv"])
+            return out
+        return call
+    intra_frame.encode_frame = keep(real[0])
+    inter_frame.encode_p_frame = keep(real[1])
+    try:
+        yield kept
+    finally:
+        intra_frame.encode_frame, inter_frame.encode_p_frame = real
+
+
+def cli_case(flags, sync: bool, dev: str, d: str) -> tuple:
+    """The port's console app on `dev` on d/in.yuv (176x144): (.265,
+    -o-raw bytes, -stats lines, every reconstruction)."""
+    base = os.path.join(d, dev)
+    argv = ["-i", os.path.join(d, "in.yuv"), "-o", base + ".265",
+            "-widthxheight", "176x144"] + flags
+    if sync:
+        argv += ["-o-raw", base + ".yuv", "-stats", base + ".jsonl"]
+    with recons_kept() as kept, contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(argv, device=dev) == 0
+    with open(base + ".265", "rb") as f:
+        stream = f.read()
+    raw = stats = None
+    if sync:
+        with open(base + ".yuv", "rb") as f:
+            raw = f.read()
+        with open(base + ".jsonl") as f:
+            stats = f.read().splitlines()
+    return stream, raw, stats, kept
+
+
+def same_recons(a, b, what: str):
+    assert len(a) == len(b), f"{what}: {len(a)} vs {len(b)} frames"
+    for k, (x, y) in enumerate(zip(a, b)):
+        for p, q in zip(x, y):
+            assert np.array_equal(p, q), \
+                f"{what}: cuda/cpu reconstructions differ at frame {k}"
+
+
+def encoder_case(cfg, frames, sync):
+    """A phase-3 case through Encoder: frames through encode() (`sync`:
+    each frame's scene check lands before the next frame, so a cut
+    restarts the GOP) or encode_async/flush."""
+    def run(dev):
+        enc = Encoder(cfg, device=dev)
+        out = ([enc.encode(*f) for f in frames] if sync
+               else encode_all(enc, frames))
+        return dict(
+            bytes=[f.nalus for f in out], idr=[f._is_idr for f in out],
+            qps=[f._qp for f in out],
+            recon=[[r.cpu().numpy() for r in enc._ref + (enc._ref2 or ())]])
+    return run
+
+
+def cli_knob_case(flags, sync):
+    """A phase-3 case through the console app on a 176x144 .yuv."""
+    def run(dev):
+        with tempfile.TemporaryDirectory() as d:
+            write_yuv(os.path.join(d, "in.yuv"),
+                      synthetic_video(6, 144, 176, plants=8, diverge=32))
+            stream, raw, stats, kept = cli_case(flags, sync, dev, d)
+        return dict(bytes=[stream], raw=raw, stats=stats, recon=kept)
+    return run
+
+
+def control_case(dev):
+    """K3 through Encoder, with control() to QP 27 before CONTROL_AT."""
+    cfg = EncoderConfig(**K3)
+    enc = Encoder(cfg, device=dev)
+    out = []
+    for k, f in enumerate(synthetic_video(6, 144, 176, plants=8, diverge=32,
+                                          quads=32, scene_cut=4)):
+        if k == CONTROL_AT:
+            enc.control(dataclasses.replace(cfg, qp=27))
+        out.append(enc.encode(*f))
+    return dict(bytes=[f.nalus for f in out], idr=[f._is_idr for f in out],
+                qps=[f._qp for f in out], recon=[f.recon for f in out])
+
+
+def parity_cases() -> list:
+    """Phase 3's cases, 176x144: (name, fn(dev) -> what must be identical
+    on both devices: Annex-B, IDR flags, slice QPs, reconstructions, and
+    for the console app its raw and stats files; all picklable)."""
     small = dict(width=176, height=144, qp=32, intra_period=100)
     rc_video = synthetic_video(9, 144, 176, plants=4, diverge=32)
     cut_video = synthetic_video(6, 144, 176, plants=8, diverge=32, quads=32,
                                 scene_cut=4)
+    cases = []
     for cfg, frames, sync in (
             (EncoderConfig(rd_mode=RDMode.RD_ULTRAFAST, **small),
              synthetic_video(5, 144, 176), False),
@@ -368,35 +527,75 @@ def phase_cpu_parity():
             name += f"+all-intra+tiles{cfg.tiles}"
         if cfg.scaling_lists:
             name += "+scaling-lists"
-        res = {}
-        for dev in ("cuda", "cpu"):
-            enc = Encoder(cfg, device=dev)
-            # rd=FAST through encode(): each frame's scene check lands
-            # before the next frame, so the cut restarts the GOP
-            out = ([enc.encode(*f) for f in frames] if sync
-                   else encode_all(enc, frames))
-            res[dev] = ([f.nalus for f in out], [f._is_idr for f in out],
-                        [r.cpu().numpy() for r in enc._ref
-                         + (enc._ref2 or ())],
-                        [f._qp for f in out])
-        assert len(res["cuda"][0]) == len(frames)
-        assert res["cuda"][0] == res["cpu"][0], \
-            f"{name}: cuda/cpu Annex-B bytes differ"
-        for a, b in zip(res["cuda"][2], res["cpu"][2]):
-            assert np.array_equal(a, b), \
-                f"{name}: cuda/cpu reconstructions differ"
-        if sync:
-            assert res["cuda"][1] == [i in (0, 5) for i in
-                                      range(len(frames))], res["cuda"][1]
-        if cfg.intra_period == 1:
-            assert all(res["cuda"][1]), res["cuda"][1]
-        if cfg.bitrate_mode == BitrateMode.CBR:
-            assert len(set(res["cuda"][3][1:])) >= 2, \
-                f"CBR kept one P-frame QP: {res['cuda'][3]}"
-        log(f"[parity] 176x144 {name} {len(frames)} frames (IDR at "
-            f"{[i for i, x in enumerate(res['cuda'][1]) if x]}, QPs "
-            f"{res['cuda'][3]}): cuda == cpu "
-            f"({sum(len(x) for x in res['cuda'][0])} bytes)")
+        cases.append((name, encoder_case(cfg, frames, sync)))
+    cases += [("K1 through the console app", cli_knob_case(K1, True)),
+              ("K2 through the console app", cli_knob_case(K2, False)),
+              (f"K3 with control() at frame {CONTROL_AT}", control_case)]
+    return cases
+
+
+def parity_results(dev: str, part: int = 0, parts: int = 1) -> dict:
+    """Every parts-th phase-3 case from the part-th on `dev`."""
+    return {name: fn(dev) for name, fn in parity_cases()[part::parts]}
+
+
+def phase_parity():
+    """Phase 3: every case on cuda and on cpu; the results must be
+    identical.  The cases are launch-bound on the card and mostly idle
+    it, so they run in three processes at once: half the cuda cases
+    here, the other half and all the cpu cases in children
+    (`chip_smoke.py --parity DEV PART PARTS FILE`)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        kids = [(dev, part, parts, os.path.join(d, f"{dev}{part}.pkl"))
+                for dev, part, parts in (("cuda", 1, 2), ("cpu", 0, 1))]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parity", dev,
+             str(part), str(parts), path], cwd=ROOT,
+            stdout=subprocess.DEVNULL) for dev, part, parts, path in kids]
+        try:
+            gpu = parity_results("cuda", 0, 2)
+            rcs = [p.wait(timeout=1000) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        assert rcs == [0, 0], f"phase 3's child processes exited {rcs}"
+        got = []
+        for _, _, _, path in kids:
+            with open(path, "rb") as f:
+                got.append(pickle.load(f))
+        gpu.update(got[0])
+        cpu = got[1]
+    log(f"[parity] {len(cpu)} cases, on cuda in two processes and on cpu "
+        f"in a third: {time.perf_counter() - t0:.1f}s")
+    assert sorted(gpu) == sorted(cpu), (sorted(gpu), sorted(cpu))
+    for name, c in cpu.items():
+        g = gpu[name]
+        for key in g:
+            if key == "recon":
+                same_recons(g[key], c[key], name)
+            else:
+                assert g[key] == c[key], f"{name}: cuda/cpu {key} differ"
+        idr = [i for i, x in enumerate(g.get("idr", [])) if x]
+        if name in ("RD_FAST", "RD_FULL+2ref"):
+            assert idr == [0, 5], idr
+        if "all-intra" in name:
+            assert all(g["idr"]), g["idr"]
+        if name == "CBR":
+            assert len(set(g["qps"][1:])) >= 2, \
+                f"CBR kept one P-frame QP: {g['qps']}"
+        if name.startswith("K3"):
+            # control() restarts with an IDR; the scene cut at frame 4
+            # does not (no intra fallback, no reinit)
+            assert idr == [0, CONTROL_AT], idr
+        log(f"[parity] 176x144 {name}"
+            + (f" {len(g['idr'])} frames (IDR at {idr}, QPs {g['qps']})"
+               if "idr" in g else "")
+            + f": cuda == cpu ({sum(len(x) for x in g['bytes'])} bytes"
+            + (f", {len(g['stats'])} stats lines" if g.get("stats") else "")
+            + ")")
 
 
 # ------------------------------------------------------------ phases 4-6
@@ -437,6 +636,16 @@ def tool_counts(rec) -> dict:
                     else int(rec.part_size.sum()) // 4)
     return dict(intra=int(rec.pred_mode.sum()) // 16,
                 split8=int((rec.cu_depth == 3).sum()) // 16)
+
+
+def check_shapes(per_frame, cfg):
+    """One P frame's recorded kernel calls must be main_path_calls(cfg)."""
+    shapes = {name: sorted(tuple(a[0].shape) + a[2:]
+                           if name == "slab_search" else
+                           (a[-2].numel(), a[-1], tuple(a[0].shape))
+                           for a in v) for name, v in per_frame.items()}
+    assert shapes == {name: sorted(v) for name, v in
+                      main_path_calls(cfg).items()}, shapes
 
 
 def drive(cfg, frames, label):
@@ -482,12 +691,7 @@ def drive(cfg, frames, label):
         assert v and len(v) % k == 0, (name, len(v))
         per_frame[name] = v[:len(v) // k]
     # phase 2 checked the edge cases at these shapes
-    shapes = {name: sorted(tuple(a[0].shape) + a[2:]
-                           if name == "slab_search" else
-                           (a[-2].numel(), a[-1], tuple(a[0].shape))
-                           for a in v) for name, v in per_frame.items()}
-    assert shapes == {name: sorted(v) for name, v in
-                      main_path_calls(cfg).items()}, shapes
+    check_shapes(per_frame, cfg)
     for name in KERNELS:
         assert counts[name] > 0, \
             f"kernel {name} was not launched on the {label} path"
@@ -507,10 +711,12 @@ def drive(cfg, frames, label):
     return counts, per_frame, recs, out, t1 - t0, p_fps
 
 
-def phase_ultrafast():
+def phase_ultrafast(n_p=8):
+    """The rd=ULTRAFAST path; returns its P fps (the second chunk)."""
     cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
                         rd_mode=RDMode.RD_ULTRAFAST)
-    drive(cfg, synthetic_video(5, cfg.height, cfg.width), "ultrafast")
+    return drive(cfg, synthetic_video(1 + n_p, cfg.height, cfg.width),
+                 "ultrafast")[-1]
 
 
 def phase_main(n_p=8):
@@ -534,12 +740,13 @@ def phase_cbr(n_p=8):
     """The rate-controlled path: the README's console example (CBR at
     1250 kbps, 25 fps) at 720p on phase 5's video.  Every kernel call of
     one P frame is held against its plain version on its recorded CBR
-    inputs."""
+    inputs.  Returns the video and the Annex-B stream it gave."""
     cfg = EncoderConfig(width=1280, height=720, intra_period=100,
                         bitrate_mode=BitrateMode.CBR, bitrate=1250,
                         frame_rate=25)
-    counts, per_frame, recs, out, i_s, p_fps = drive(
-        cfg, fast_video(1 + n_p, cfg.height, cfg.width), "cbr")
+    assert cfg == cli_cfg(README_CBR), "phase 6 is not the README's example"
+    frames = fast_video(1 + n_p, cfg.height, cfg.width)
+    counts, per_frame, recs, out, i_s, p_fps = drive(cfg, frames, "cbr")
     err = hold_against_plain(per_frame, "CBR inputs")
     for i, (r, f) in enumerate(zip(recs, out)):
         log(f"[cbr] frame {i} {'I' if f._is_idr else 'P'}: slice QP "
@@ -554,6 +761,7 @@ def phase_cbr(n_p=8):
         f"target; P fps {p_fps:.3f}; I frame {i_s:.3f} s; kernels equal "
         f"to their plain versions on CBR inputs (max abs err {err}); "
         f"launches {counts}")
+    return frames, b"".join(f.nalus for f in out)
 
 
 def phase_two_ref(n_p=8):
@@ -642,6 +850,91 @@ def phase_all_intra(k=8, size=(1280, 720), tiles=(4, 3), n_steps=(146, 38)):
         f"{[round(p, 2) for p in psnrs]}; step 10 again: {k} frames "
         f"{step_k}, 1 frame {step_1}; launches {counts}")
     return res
+
+
+def phase_cli(frames, cbr_stream, n_p=8):
+    """The console app at 720p on phase 6's video: (a) `python -m
+    homerhevc_torch` with the README's flags must write phase 6's stream;
+    (b) cli.main in-process at rd=ULTRAFAST with performance_mode FULL and
+    half-pel ME, every kernel call of one P frame held against its plain
+    version.  Returns (b)'s launch counts, its largest difference from
+    the plain versions and the numbers it prints."""
+    with tempfile.TemporaryDirectory() as d:
+        yuv = os.path.join(d, "in.yuv")
+        write_yuv(yuv, frames)
+        out = os.path.join(d, "cbr.265")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "homerhevc_torch", "-i", yuv, "-o", out]
+            + README_CBR, cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        wall_a = time.perf_counter() - t0
+        assert res.returncode == 0, \
+            f"python -m homerhevc_torch exited {res.returncode}:\n" \
+            f"{res.stderr[-4000:]}"
+        lines_a = res.stdout.strip().splitlines()
+        with open(out, "rb") as f:
+            assert f.read() == cbr_stream, \
+                "the console app's .265 differs from phase 6's stream"
+        for line in lines_a:
+            log(f"[cli] (a) {line}")
+        log(f"[cli] (a) python -m homerhevc_torch {' '.join(README_CBR)}: "
+            f"{wall_a:.3f}s, .265 == phase 6's stream ({len(cbr_stream)} "
+            f"bytes)")
+
+        argv = ["-i", yuv, "-o", os.path.join(d, "ufast.265")] + CLI_UFAST
+        cfg = cli_cfg(CLI_UFAST)
+        encs, t_p = [], []
+        real = Encoder._dispatch_p_chunk
+
+        def p_chunk(self, *a, **k):
+            # the work before each P chunk ends before the chunk is queued:
+            # the I frame before the first, the first chunk before the
+            # second (timed, as drive() times its chunks after the first)
+            torch.cuda.synchronize()
+            encs.append(self)
+            t_p.append(time.perf_counter())
+            return real(self, *a, **k)
+        Encoder._dispatch_p_chunk = p_chunk
+        printed = io.StringIO()
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                rec = record_calls(lambda: assert_zero(cli.main(argv)))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            counts = kernels.launch_counts()
+        finally:
+            Encoder._dispatch_p_chunk = real
+    per_frame = {}
+    for name, v in rec.items():
+        assert counts[name] > 0, \
+            f"kernel {name} was not launched on the console app's path"
+        assert len(v) % n_p == 0 and counts[name] == len(v), \
+            (name, len(v), counts[name])
+        per_frame[name] = v[:len(v) // n_p]
+    check_shapes(per_frame, cfg)
+    err = hold_against_plain(per_frame, "the console app's inputs")
+    y = encs[0]._ref[0].cpu().numpy()[:cfg.height, :cfg.width]
+    p = psnr(frames[-1][0], y)
+    assert 28.0 < p < 60.0, f"implausible Y PSNR {p:.2f} dB"
+    k = cfg.frames_per_launch
+    assert len(t_p) == n_p // k, len(t_p)
+    i_s, p_fps = t_p[0] - t0, (n_p - k) / (t1 - t_p[1])
+    for line in printed.getvalue().strip().splitlines():
+        log(f"[cli] (b) {line}")
+    log(f"[cli] (b) cli.main {' '.join(CLI_UFAST)}: I frame {i_s:.3f}s "
+        f"(from the app's start), {n_p - k} P frames after the first chunk "
+        f"{t1 - t_p[1]:.3f}s -> P fps {p_fps:.3f}; last-frame Y PSNR "
+        f"{p:.2f} dB; kernels equal to their plain versions on its inputs "
+        f"(max abs err {err}); launches {counts}")
+    return counts, err, dict(wall_a=wall_a, cli_a=lines_a, i_s=i_s,
+                             p_fps=p_fps)
+
+
+def assert_zero(code):
+    assert code == 0, f"cli.main returned {code}"
 
 
 def hold_against_plain(per_frame, what: str) -> int:
@@ -774,15 +1067,22 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     size = dict(width=1280, height=720, qp=32, intra_period=100)
+    small = ["-widthxheight", "176x144"]
     phase_compare([EncoderConfig(**size),
                    EncoderConfig(rd_mode=RDMode.RD_FULL, num_ref_frames=2,
-                                 **size)])
-    phase_cpu_parity()
-    phase_ultrafast()
+                                 **size),
+                   cli_cfg(small + K1), cli_cfg(small + K2),
+                   EncoderConfig(**K3), cli_cfg(CLI_UFAST)])
+    phase_parity()
+    ufast_fps = phase_ultrafast()
     fast_counts, fast_calls = phase_main()
-    phase_cbr()
+    frames, cbr_stream = phase_cbr()
     counts, per_frame = phase_two_ref()
     phase_all_intra()
+    cli_counts, cli_err, cli_nums = phase_cli(frames, cbr_stream)
+    log(f"[cli] rd=ULTRAFAST P fps at 720p: performance_mode FULL with "
+        f"half-pel ME through the app {cli_nums['p_fps']:.3f}, "
+        f"performance_mode UFAST (phase 4) {ufast_fps:.3f}")
     # the kernels line reports this slice's path (two references,
     # rd=FULL); each row also carries the rd=FAST path's numbers
     fast = {r["name"]: r for r in kernel_report(fast_counts, fast_calls)}
@@ -792,6 +1092,8 @@ def main():
         r["rd_fast_path"] = {k: f[k] for k in (
             "launches", "ms", "ms_spread", "plain_ms", "bound_ms",
             "library_ms")}
+        r["cli_path"] = dict(launches=cli_counts[r["name"]],
+                             max_abs_err=cli_err)
         for label, x in (("two_ref", r), ("rd_fast", f)):
             lib = ("none" if x["library_ms"] is None
                    else f"{x['library_ms']:.4f}")
@@ -800,7 +1102,7 @@ def main():
                 f"{x['ms_spread'][1]:.4f}, plain {x['plain_ms']:.4f}, "
                 f"library {lib}, bound {x['bound_ms']:.5f} "
                 f"{r['bound_by']}), {x['launches']} launches")
-    log(f"[time] phases 1-8 {time.perf_counter() - t0:.1f}s")
+    log(f"[time] phases 1-9 {time.perf_counter() - t0:.1f}s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -813,4 +1115,11 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parity"]:
+        # a share of phase 3's cases, beside the parent's (phase_parity)
+        dev, part, parts, path = sys.argv[2:6]
+        torch.set_num_threads(4)
+        with open(path, "wb") as f:
+            pickle.dump(parity_results(dev, int(part), int(parts)), f)
+    else:
+        main()

@@ -16,7 +16,9 @@ formulas with XLA on the CPU, which
   in windows of 32 (zero padding split evenly around the grid), each
   window element by element in row-major order, then summing what is
   left: row by row, then over the rows in a halving tree where there
-  are 2, 4 or 8 rows of at most 8, else element by element,
+  are 2, 4 or 8 rows of at most 8, else element by element; a block of
+  16-32 rows by 4 or 8 columns (the grid, or an unpadded window of 32
+  rows) is summed in vector lanes instead (`_lane_sum`),
 * divides by a constant as a multiply by its float32 reciprocal,
 * evaluates `2.0 ** y` as the correctly rounded power of two.
 
@@ -67,11 +69,41 @@ def _seq(cols) -> torch.Tensor:
     return acc
 
 
+def _lanes(r: int, c: int):
+    """Vector lanes of XLA-CPU's loop over an r x c block, or None where
+    it sums element by element.
+
+    LLVM's loop vectorizer runs the row loop of a 4- or 8-column block of
+    16-32 rows in lanes of 256 bits (XLA's prefer-vector-width, whatever
+    wider vectors the host has): 8 float32 lanes when the rows come in
+    whole groups of 8 and a row is 4 wide, else 4 lanes (read off
+    `*.ir-with-opt.ll` under XLA_FLAGS=--xla_dump_to on an AVX-512 host;
+    a host without 256-bit vectors would take other lanes)."""
+    if c not in (4, 8) or not 16 <= r <= 32:
+        return None
+    return 8 if c == 4 and r % 8 == 0 else 4
+
+
+def _lane_sum(x: torch.Tensor, lanes: int) -> torch.Tensor:
+    """Sum of each [..., r, c] block as the vectorized loop does it: lane
+    l adds rows l, l + lanes, ... element by element, then the lanes are
+    reduced in a halving tree."""
+    r, c = x.shape[-2:]
+    rows = x.reshape(*x.shape[:-2], r // lanes, lanes, c).transpose(-3, -2)
+    acc = _seq(rows.reshape(*x.shape[:-2], lanes, -1).unbind(-1))
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[..., :h] + acc[..., h:]
+    return acc[..., 0]
+
+
 def grid_sum(x: torch.Tensor) -> torch.Tensor:
     """float32 sum of a 2-D grid [r, c] in XLA-CPU's order (jnp.sum of
     the whole grid; the order was read off XLA's optimised program and
     checked against it for every multiple-of-4 shape up to 68 x 120)."""
     r, c = x.shape
+    if _lanes(r, c):
+        return _lane_sum(x, _lanes(r, c))
     if r > 32 or c > 32:
         def window(n):            # (window, padding before, after)
             if n <= 32:
@@ -81,9 +113,11 @@ def grid_sum(x: torch.Tensor) -> torch.Tensor:
         (wr, lr, hr), (wc, lc, hc) = window(r), window(c)
         xp = torch.nn.functional.pad(x, (lc, hc, lr, hr))
         nr, nc = xp.shape[0] // wr, xp.shape[1] // wc
-        win = xp.reshape(nr, wr, nc, wc).permute(0, 2, 1, 3) \
-            .reshape(nr, nc, wr * wc)
-        x = _seq(win.unbind(-1))
+        win = xp.reshape(nr, wr, nc, wc).permute(0, 2, 1, 3)
+        if lr + hr == 0 and _lanes(wr, wc):
+            x = _lane_sum(win, _lanes(wr, wc))
+        else:
+            x = _seq(win.reshape(nr, nc, wr * wc).unbind(-1))
         r, c = nr, nc
     if r in (2, 4, 8) and c <= 8:
         x = _seq(x.unbind(-1))

@@ -74,9 +74,33 @@ def test_fast_stream_and_recon_match_jax_and_decode(jax_run, torch_run):
             np.testing.assert_array_equal(d, r, err_msg=f"frame {k}")
 
 
-def test_fast_scene_cut_restarts_at_the_same_frame(jax_run, torch_run):
+def test_fast_scene_cut_restarts_at_the_same_frame(video, jax_run,
+                                                   torch_run):
+    """The cut restarts the GOP at frame 5 in both packages; with
+    scene_change_reinit=False (a host-side knob: the same compiled JAX
+    programs) the cut frame is still mostly intra candidates, but
+    neither restarts, and the streams and reconstructions are identical,
+    equal to the restarting run's up to the cut, and decode."""
     assert torch_run[2] == jax_run[2]
     assert torch_run[2] == [True, False, False, False, False, True]
+    cfg = dict(SLICE, scene_change_reinit=False)
+    jenc = japi.Encoder(jconfig.EncoderConfig(**cfg))
+    j = [jenc.encode(*f) for f in video]
+    tenc = tapi.Encoder(EncoderConfig(**cfg), device="cpu")
+    t = [tenc.encode(*f) for f in video]
+    assert [f.nalus for f in t] == [f.nalus for f in j]
+    assert [f.nalus for f in t[:CUT + 1]] == jax_run[0][:CUT + 1]
+    assert [f._is_idr for f in t] == [f._is_idr for f in j] \
+        == [True] + [False] * (N - 1)
+    assert t[CUT]._intra_frac == j[CUT]._intra_frac > 0.5
+    for k, (a, b) in enumerate(zip(t, j)):
+        for x, y in zip(a.recon, b.recon):
+            np.testing.assert_array_equal(x, y, err_msg=f"frame {k}")
+    dec = de265.decode(b"".join(f.nalus for f in t))
+    assert len(dec) == N
+    for k, (got, f) in enumerate(zip(dec, t)):
+        for d, r in zip(got, f.recon):
+            np.testing.assert_array_equal(d, r, err_msg=f"frame {k}")
 
 
 def test_fast_tools_fired(torch_run):

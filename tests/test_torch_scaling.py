@@ -117,12 +117,16 @@ def test_ippp_scaling_lists_match_jax_and_decode(video):
 def test_scene_gate_mean_matches_xla_at_the_threshold():
     """sad_me planted so that its exact sum lies within a few float32
     steps of 6.0 per pixel, at the grids of 128x64, 128x128, 176x144,
-    416x240, 1280x720 and 1920x1080 frames: the port's gate equals the
-    reference's (jnp.sum of the float32 grid, then the division, under
-    jax.jit on the CPU), where a float64 mean would not."""
+    416x240, 1280x720 and 1920x1080 frames, and of the tall narrow
+    pictures 64 or 128 wide and 256-512 or 1024 tall (which XLA sums in
+    vector lanes): the port's gate equals the reference's (jnp.sum of
+    the float32 grid, then the division, under jax.jit on the CPU),
+    where a float64 mean would not."""
     rng = np.random.default_rng(12)
     f64_differs = 0
-    for bh, bw in ((4, 8), (8, 8), (12, 12), (16, 28), (48, 80), (68, 120)):
+    tall = [(r, c) for r in (16, 20, 24, 28, 32, 64) for c in (4, 8)]
+    for bh, bw in [(4, 8), (8, 8), (12, 12), (16, 28), (48, 80),
+                   (68, 120)] + tall:
         h, w = 16 * bh, 16 * bw
         ref = jax.jit(lambda s, c: (c > bh * bw // 4) | (
             jnp.sum(s).astype(jnp.float32) / (h * w) > 6.0))
