@@ -30,14 +30,16 @@ Phases (any failure raises and exits non-zero):
      K3 through Encoder (padded-size coding, no P intra fallback, no
      scene-cut restart, control() to another QP in mid-stream): the
      Annex-B bytes, the app's raw and stats files and the
-     reconstructions must be identical (the cases run in three processes
-     at once: half the cuda cases here, the other half and the cpu cases
-     in two children, `chip_smoke.py --parity DEV PART PARTS FILE`);
+     reconstructions must be identical (the cases run in four child
+     processes, half the cases on each device in each,
+     `chip_smoke.py --parity DEV PART PARTS FILE`);
   4. the rd=ULTRAFAST path: 1280x720 IPPP at QP32, 1 I + 8 P frames
      through Encoder.encode_async/flush: every kernel launched, at the
      path's shapes; prints P fps;
   5. the default configuration: 1280x720 IPPP at QP32, rd=FAST, 1 I +
-     8 P frames through Encoder.encode_async/flush, on video whose
+     8 P frames through Encoder.encode_async/flush (the I frame's state
+     saved by save_checkpoint in stage A, the P frames after
+     load_checkpoint), on video whose
      content fires the P frames' intra fallback and 8x8 split and the I
      frame's NxN; every kernel must have been launched at every call site
      of the path; prints the tools' counts per frame and fps;
@@ -50,7 +52,8 @@ Phases (any failure raises and exits non-zero):
      and the I frame's seconds;
   7. this slice's path: 1280x720 IPPP at QP32, rd=FULL (the I frame's
      top-3 full-RD mode refinement) with two reference pictures, 1 I +
-     8 P frames through Encoder.encode_async/flush on phase 5's video
+     8 P frames through Encoder.encode_async/flush (checkpointed after
+     the I frame, as phase 5) on phase 5's video
      plus a flicker on odd frames over the left half: every kernel
      launched at every call site (ME on both references: 4 slab searches
      per P frame), each equal to its plain version on one P frame's
@@ -74,28 +77,59 @@ Phases (any failure raises and exits non-zero):
      ULTRAFAST, performance_mode FULL and half-pel ME on the same file:
      every kernel launched at the path's shapes, each equal to its plain
      version on one P frame's recorded inputs; prints the I frame's
-     seconds and P fps.
+     seconds and P fps;
+ 10. the multi-device path: two ranks of one torch.distributed group
+     (gloo) on the one card, spawned after the kernels are built: (a)
+     phase 5's 8 P frames (num_chips=2: two bands of 6 CTU rows) from
+     phase 5's state after its I frame (a checkpoint, so no I frame is
+     coded again) must give phase 5's bytes, frame by frame, on each
+     rank, every kernel launched at the band shapes and equal to its
+     plain version on each rank's recorded inputs of one band P frame;
+     prints per rank the band count, launches per band P frame and P fps
+     (no claim: the ranks share the card); (b) phase 8's chunk of 8 in
+     two frame shards must give phase 8's bytes, with no kernel
+     launched; (c) NCCL with one rank per card runs (a) again where the
+     machine has two cards, and otherwise a line says it did not run
+     and why.
+The work runs in two stages.  Stage A runs at once what no number of
+this script times: phase 3's cases (cuda and cpu, two child processes
+each), phase 9(a)'s console app and the I frames of phases 5 and 7
+(children that save the encoder's state after them, `chip_smoke.py
+--i-frame LABEL DIR`), while this process codes phase 6's I frame (it
+stays in flight, as in a continuous run: under CBR a flush after the I
+frame would change the P frames' QPs).  These are launch-bound and leave
+the card idle most of the time, so the jobs share it.  Stage B then
+runs, alone, everything that is timed: phase 4, the P frames of phases
+5-7 (5 and 7 from their checkpoints), phases 8, 9(b) and 10 and the
+kernel timings.
 The line before the last two is {"kernels": [...]}: per kernel, on one
 phase-7 P frame's inputs, its launches over the phase, error, time
 (median and spread of 5 runs of 50), the plain version's and a PyTorch
 call's time and its bound, and the same for phase 5 (`rd_fast_path`),
-and phase 9(b)'s launches (`cli_path`);
+phase 9(b) (`cli_path`) and phase 10(a) on the lower band's rank
+(`band_path`, launches over its 8 band P frames);
 then the card's name and power limit; the last line of stdout is
 {"ok": true, "device": {...}}.
 """
+import concurrent.futures
 import contextlib
 import dataclasses
+import datetime
 import io
 import json
 import os
 import pickle
+import shutil
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available")
@@ -108,6 +142,7 @@ from homerhevc_torch.entropy import binding                   # noqa: E402
 from homerhevc_torch.models import (                         # noqa: E402
     inter_frame, intra_frame, schedule)
 from homerhevc_torch.ops import kernels                       # noqa: E402
+from homerhevc_torch.parallel import multihost                # noqa: E402
 from homerhevc_torch.profile_main import StepProbe            # noqa: E402
 from homerhevc_torch.utils.synthetic import synthetic_video   # noqa: E402
 
@@ -191,16 +226,20 @@ def phase_build():
 
 
 # ---------------------------------------------------------------- phase 2
-def main_path_calls(cfg):
+def main_path_calls(cfg, bands: int = 1):
     """The shapes of the kernel calls one P frame makes at this config:
     name -> list of (n, size, plane shape) or (h, w, bs, ry, rx).  With
     two references ME runs on each, and every luma MC and split8 window
     reads a stack of the R = 2 luma planes, chroma MC one of R = 4
     (U0, U1, V0, V1).  rd=FULL's P frame is rd=FAST's.  The ME knobs
     (performance_mode, motion_estimation_precision) change no call: every
-    subpel offset lies in the one window of block + 9 per block."""
+    subpel offset lies in the one window of block + 9 per block.  With
+    `bands` row bands, one rank's calls: its band's blocks against the
+    whole reference planes, and the intra fallback's on the whole frame
+    (it runs replicated)."""
     h, w = cfg.padded_height, cfg.padded_width
-    n = (h // 16) * (w // 16)
+    hb = h // bands
+    n = (hb // 16) * (w // 16)
     pad = 144                                   # me.REF_PAD
     half = (h // 2 + 2 * 78, w // 2 + 2 * 78)   # coarse refine pad 6+72
     full = (h + 2 * pad, w + 2 * pad)
@@ -212,20 +251,21 @@ def main_path_calls(cfg):
     calls = dict(
         gather_windows=[(n, 20, half), (2 * n, 22, full), (n, 25, full)] * r,
         gather_windows_ref=[(2 * n, 11, (2 * r,) + chroma)],
-        slab_search=[(h // 8, w // 8, 2, 8, 16),
-                     (h // 2, w // 2, 8, 3, 3)] * r)
+        slab_search=[(hb // 8, w // 8, 2, 8, 16),
+                     (hb // 2, w // 2, 8, 3, 3)] * r)
     rounds = 1 if cfg.rd_mode == RDMode.RD_ULTRAFAST else 2
     calls[mc_name] += [(2 * n, 23, mc_full)] * rounds   # merge left/top
     if cfg.rd_mode != RDMode.RD_ULTRAFAST:
         k = min(512, n)                         # fallback and split caps
+        kf = min(512, (h // 16) * (w // 16))
         if cfg.intra_in_p:
             calls["gather_windows"] += (
-                [(k, 33, (1 + h + 16, 1 + w + 16))] * 2     # fallback ADI
-                + [(k, 17, (1 + h // 2 + 8, 1 + w // 2 + 8))] * 4)  # chroma
+                [(kf, 33, (1 + h + 16, 1 + w + 16))] * 2    # fallback ADI
+                + [(kf, 17, (1 + h // 2 + 8, 1 + w // 2 + 8))] * 4)
         calls[mc_name] += [
             (4 * k, 14, mc_full), (4 * k, 15, mc_full),  # split8 refine, MC
-            ((h // 32) * (w // 32), 39, mc_full),        # quadtree majority
-            ((h // 64) * (w // 64), 71, mc_full)]
+            ((hb // 32) * (w // 32), 39, mc_full),       # quadtree majority
+            ((hb // 64) * (w // 64), 71, mc_full)]
         calls["gather_windows_ref"].append((8 * k, 7, (2 * r,) + chroma))
     return calls
 
@@ -539,37 +579,77 @@ def parity_results(dev: str, part: int = 0, parts: int = 1) -> dict:
     return {name: fn(dev) for name, fn in parity_cases()[part::parts]}
 
 
-def phase_parity():
-    """Phase 3: every case on cuda and on cpu; the results must be
-    identical.  The cases are launch-bound on the card and mostly idle
-    it, so they run in three processes at once: half the cuda cases
-    here, the other half and all the cpu cases in children
-    (`chip_smoke.py --parity DEV PART PARTS FILE`)."""
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        kids = [(dev, part, parts, os.path.join(d, f"{dev}{part}.pkl"))
-                for dev, part, parts in (("cuda", 1, 2), ("cpu", 0, 1))]
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--parity", dev,
-             str(part), str(parts), path], cwd=ROOT,
-            stdout=subprocess.DEVNULL) for dev, part, parts, path in kids]
-        try:
-            gpu = parity_results("cuda", 0, 2)
-            rcs = [p.wait(timeout=1000) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        assert rcs == [0, 0], f"phase 3's child processes exited {rcs}"
-        got = []
-        for _, _, _, path in kids:
-            with open(path, "rb") as f:
-                got.append(pickle.load(f))
-        gpu.update(got[0])
-        cpu = got[1]
-    log(f"[parity] {len(cpu)} cases, on cuda in two processes and on cpu "
-        f"in a third: {time.perf_counter() - t0:.1f}s")
+STAGE_A_LIMIT_S = 700
+
+
+def start_job(jobs, name, argv, d, env=None):
+    """Start a stage-A child; its stdout and stderr go to d/NAME.out and
+    d/NAME.err."""
+    with open(os.path.join(d, name + ".out"), "w") as out, \
+            open(os.path.join(d, name + ".err"), "w") as err:
+        jobs[name] = subprocess.Popen(argv, cwd=ROOT, stdout=out,
+                                      stderr=err, env=env)
+
+
+def watch_jobs(jobs, t0, ends):
+    """Note each stage-A child's seconds from t0 in `ends` as it ends (a
+    thread of its own, so the ends are seen while this process works)."""
+    while any(name not in ends for name in jobs):
+        for name, proc in jobs.items():
+            if name not in ends and proc.poll() is not None:
+                ends[name] = time.perf_counter() - t0
+        time.sleep(0.2)
+
+
+def wait_jobs(jobs, d, t0, watch):
+    """Wait for every stage-A child (watch_jobs' thread), STAGE_A_LIMIT_S
+    after t0 at most; fail if one failed."""
+    watch.join(max(1.0, STAGE_A_LIMIT_S - (time.perf_counter() - t0)))
+    running = [name for name, proc in jobs.items() if proc.poll() is None]
+    if running:
+        raise TimeoutError(f"stage A: {running} still running after "
+                           f"{STAGE_A_LIMIT_S} s")
+    for name, proc in jobs.items():
+        if proc.returncode != 0:
+            with open(os.path.join(d, name + ".err")) as f:
+                err = f.read()[-4000:]
+            raise AssertionError(f"stage A: {name} exited "
+                                 f"{proc.returncode}:\n{err}")
+
+
+def stop_jobs(jobs):
+    for proc in jobs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+PARITY_KIDS = [(dev, part, 2) for dev in ("cuda", "cpu") for part in (0, 1)]
+
+
+def start_parity(jobs, d):
+    """Phase 3's children: every case on cuda and on cpu, each device's
+    cases in two halves (`chip_smoke.py --parity DEV PART PARTS FILE`,
+    the results in d/parity_DEVPART.pkl)."""
+    for dev, part, parts in PARITY_KIDS:
+        name = f"parity_{dev}{part}"
+        start_job(jobs, name,
+                  [sys.executable, os.path.abspath(__file__), "--parity",
+                   dev, str(part), str(parts), os.path.join(d, name + ".pkl")],
+                  d)
+
+
+def phase_parity(d, ends):
+    """Phase 3: the children's results on cuda and on cpu must be
+    identical (their processes have ended; `ends`: their seconds)."""
+    got = {}
+    for dev, part, _ in PARITY_KIDS:
+        with open(os.path.join(d, f"parity_{dev}{part}.pkl"), "rb") as f:
+            got.setdefault(dev, {}).update(pickle.load(f))
+    gpu, cpu = got["cuda"], got["cpu"]
+    secs = max(t for name, t in ends.items() if name.startswith("parity"))
+    log(f"[parity] {len(cpu)} cases, on cuda and on cpu in two processes "
+        f"each: {secs:.1f}s (stage A)")
     assert sorted(gpu) == sorted(cpu), (sorted(gpu), sorted(cpu))
     for name, c in cpu.items():
         g = gpu[name]
@@ -638,27 +718,19 @@ def tool_counts(rec) -> dict:
                 split8=int((rec.cu_depth == 3).sum()) // 16)
 
 
-def check_shapes(per_frame, cfg):
-    """One P frame's recorded kernel calls must be main_path_calls(cfg)."""
+def check_shapes(per_frame, cfg, bands: int = 1):
+    """One P frame's recorded kernel calls must be main_path_calls."""
     shapes = {name: sorted(tuple(a[0].shape) + a[2:]
                            if name == "slab_search" else
                            (a[-2].numel(), a[-1], tuple(a[0].shape))
                            for a in v) for name, v in per_frame.items()}
     assert shapes == {name: sorted(v) for name, v in
-                      main_path_calls(cfg).items()}, shapes
+                      main_path_calls(cfg, bands).items()}, shapes
 
 
-def drive(cfg, frames, label):
-    """One path: frames[0] as the I frame, then the P frames in chunks of
-    cfg.frames_per_launch through encode_async/flush.  The launch counts
-    are zeroed just before and read just after; the wrappers' arguments
-    are recorded in the first chunk, and the chunks after it are timed.
-    Returns (counts, one P frame's calls, FrameRecords, coded frames,
-    I-frame seconds, P fps of the timed chunks)."""
-    k = cfg.frames_per_launch
-    n_p = len(frames) - 1
-    assert n_p % k == 0, (n_p, k)
-    recs = []
+@contextlib.contextmanager
+def slices_to(recs):
+    """Append every FrameRecord the host stage entropy-codes to recs."""
     real = binding.encode_slice
 
     def spy(ccfg, rec):
@@ -666,12 +738,51 @@ def drive(cfg, frames, label):
         return real(ccfg, rec)
     binding.encode_slice = spy
     try:
-        enc = Encoder(cfg)
-        out = []
+        yield
+    finally:
+        binding.encode_slice = real
+
+
+def drive_i(cfg, frames, ckpt=None) -> dict:
+    """The I frame of a path: frames[0] through encode_async.  With
+    `ckpt`, then flush() and the encoder's state saved there; without, the
+    I frame stays in flight (its host stage done, its bits not yet
+    accounted), so the P frames are dispatched as in a continuous run.
+    The I frame must launch no kernel.  Returns the run for drive."""
+    enc = Encoder(cfg)
+    run = dict(enc=enc, out=[], recs=[])
+    with slices_to(run["recs"]):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        out += enc.encode_async(*frames[0])
+        run["out"] += enc.encode_async(*frames[0])
+        if ckpt is not None:
+            run["out"] += enc.flush()
+            enc.save_checkpoint(ckpt)
+        else:
+            concurrent.futures.wait(enc._pending)
         torch.cuda.synchronize()
+        run["i_s"] = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    assert not any(counts.values()), f"the I frame launched {counts}"
+    return run
+
+
+def drive(cfg, frames, label, run=None, i_note=""):
+    """One path: frames[0] as the I frame (or `run`, drive_i's result for
+    it), then the P frames in chunks of cfg.frames_per_launch through
+    encode_async/flush.  The launch counts are zeroed just before the P
+    frames (the I frame launches none) and read just after; the
+    wrappers' arguments are recorded in the first chunk, and the chunks
+    after it are timed.  Returns (counts, one P frame's calls,
+    FrameRecords, coded frames, I-frame seconds, P fps of the timed
+    chunks)."""
+    k = cfg.frames_per_launch
+    n_p = len(frames) - 1
+    assert n_p % k == 0, (n_p, k)
+    run = run or drive_i(cfg, frames)
+    enc, out, recs = run["enc"], run["out"], run["recs"]
+    with slices_to(recs):
+        kernels.reset_launch_counts()
         t1 = time.perf_counter()
         rec = record_calls(lambda: [out.extend(enc.encode_async(*f))
                                     for f in frames[1:1 + k]])
@@ -683,8 +794,6 @@ def drive(cfg, frames, label):
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         counts = kernels.launch_counts()
-    finally:
-        binding.encode_slice = real
     assert len(out) == 1 + n_p and len(recs) == 1 + n_p, (len(out), len(recs))
     per_frame = {}
     for name, v in rec.items():
@@ -704,11 +813,12 @@ def drive(cfg, frames, label):
     timed = (f", {n_p - k} P frames {t3 - t2:.3f}s -> P fps "
              f"{(n_p - k) / (t3 - t2):.3f}" if n_p > k else "")
     log(f"[{label}] {cfg.width}x{cfg.height} {cfg.rd_mode.name} 1I+{n_p}P: "
-        f"I frame {t1 - t0:.3f}s, first chunk (recording) {t2 - t1:.3f}s"
+        f"I frame {run['i_s']:.3f}s{i_note}, first chunk (recording) "
+        f"{t2 - t1:.3f}s"
         f"{timed}; last-frame Y PSNR {p:.2f} dB; bits "
         f"{[f.bits for f in out]}; launches {counts}")
     p_fps = (n_p - k) / (t3 - t2) if n_p > k else None
-    return counts, per_frame, recs, out, t1 - t0, p_fps
+    return counts, per_frame, recs, out, run["i_s"], p_fps
 
 
 def phase_ultrafast(n_p=8):
@@ -719,13 +829,61 @@ def phase_ultrafast(n_p=8):
                  "ultrafast")[-1]
 
 
-def phase_main(n_p=8):
-    """The default configuration (rd=FAST).  Returns the launch counts of
-    its run and the kernel calls one P frame of its first chunk made."""
-    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100)
+def path_cfg(label) -> EncoderConfig:
+    """The 720p IPPP configurations of phases 5, 6 and 7."""
+    size = dict(width=1280, height=720, intra_period=100)
+    if label == "cbr":
+        return EncoderConfig(bitrate_mode=BitrateMode.CBR, bitrate=1250,
+                             frame_rate=25, **size)
+    if label == "two_ref":
+        return EncoderConfig(qp=32, rd_mode=RDMode.RD_FULL,
+                             num_ref_frames=2, **size)
+    return EncoderConfig(qp=32, **size)
+
+
+def path_video(label, n_p=8) -> list:
+    """Phases 5 and 6 code fast_video; phase 7 the same plus a flicker on
+    odd frames over the left half, where the picture two back is the
+    better reference."""
+    if label != "two_ref":
+        return fast_video(1 + n_p, 720, 1280)
+    return synthetic_video(1 + n_p, 720, 1280, plants=64, diverge=128,
+                           quads=64, flicker=20)
+
+
+def i_frame(label, d):
+    """The I frame of path `label` (a stage-A child, `chip_smoke.py
+    --i-frame LABEL DIR`): the encoder's state after it goes to
+    DIR/LABEL_after_i.npz, its coded frame, FrameRecord and seconds to
+    DIR/LABEL_i.pkl."""
+    run = drive_i(path_cfg(label), path_video(label),
+                  os.path.join(d, f"{label}_after_i.npz"))
+    with open(os.path.join(d, f"{label}_i.pkl"), "wb") as f:
+        pickle.dump({k: run[k] for k in ("out", "recs", "i_s")}, f)
+
+
+def resumed(label, d) -> dict:
+    """i_frame's run of path `label`, its encoder restored from the
+    checkpoint, for drive."""
+    with open(os.path.join(d, f"{label}_i.pkl"), "rb") as f:
+        run = pickle.load(f)
+    run["enc"] = Encoder(path_cfg(label))
+    run["enc"].load_checkpoint(os.path.join(d, f"{label}_after_i.npz"))
+    return run
+
+
+RESUMED = " (stage A, a child; the P frames from its checkpoint)"
+
+
+def phase_main(d, n_p=8):
+    """The default configuration (rd=FAST), its P frames from the state
+    i_frame saved in d after its I frame.  Returns the launch counts of
+    its run, the kernel calls one P frame of its first chunk made and the
+    P frames' Annex-B bytes."""
+    cfg = path_cfg("main")
     assert cfg.rd_mode == RDMode.RD_FAST
     counts, per_frame, recs, out, _, _ = drive(
-        cfg, fast_video(1 + n_p, cfg.height, cfg.width), "main")
+        cfg, path_video("main", n_p), "main", resumed("main", d), RESUMED)
     tools = [tool_counts(r) for r in recs]
     for i, (t, f) in enumerate(zip(tools, out)):
         log(f"[tools] frame {i} {'I' if f._is_idr else 'P'}: {t}, "
@@ -733,20 +891,19 @@ def phase_main(n_p=8):
     for key in ("nxn", "intra", "split8"):
         assert sum(t.get(key, 0) for t in tools) > 0, \
             f"the main path's video fired no {key} CU"
-    return counts, per_frame
+    return counts, per_frame, [f.nalus for f in out[1:]]
 
 
-def phase_cbr(n_p=8):
+def phase_cbr(run, frames, n_p=8):
     """The rate-controlled path: the README's console example (CBR at
-    1250 kbps, 25 fps) at 720p on phase 5's video.  Every kernel call of
-    one P frame is held against its plain version on its recorded CBR
-    inputs.  Returns the video and the Annex-B stream it gave."""
-    cfg = EncoderConfig(width=1280, height=720, intra_period=100,
-                        bitrate_mode=BitrateMode.CBR, bitrate=1250,
-                        frame_rate=25)
+    1250 kbps, 25 fps) at 720p on phase 5's video, from drive_i's `run`
+    of its I frame.  Every kernel call of one P frame is held against its
+    plain version on its recorded CBR inputs.  Returns the Annex-B stream
+    it gave."""
+    cfg = path_cfg("cbr")
     assert cfg == cli_cfg(README_CBR), "phase 6 is not the README's example"
-    frames = fast_video(1 + n_p, cfg.height, cfg.width)
-    counts, per_frame, recs, out, i_s, p_fps = drive(cfg, frames, "cbr")
+    counts, per_frame, recs, out, i_s, p_fps = drive(cfg, frames, "cbr", run,
+                                                     " (stage A)")
     err = hold_against_plain(per_frame, "CBR inputs")
     for i, (r, f) in enumerate(zip(recs, out)):
         log(f"[cbr] frame {i} {'I' if f._is_idr else 'P'}: slice QP "
@@ -761,22 +918,20 @@ def phase_cbr(n_p=8):
         f"target; P fps {p_fps:.3f}; I frame {i_s:.3f} s; kernels equal "
         f"to their plain versions on CBR inputs (max abs err {err}); "
         f"launches {counts}")
-    return frames, b"".join(f.nalus for f in out)
+    return b"".join(f.nalus for f in out)
 
 
-def phase_two_ref(n_p=8):
-    """This slice's path: rd=FULL (the I frame's top-3 full-RD mode
-    refinement) with two reference pictures at 720p, on phase 5's video
-    plus a flicker on odd frames over the left half, where the picture
-    two back is the better reference.  ME runs on both references (4
-    slab searches per P frame), and every kernel call of one P frame is
-    held against its plain version on its recorded inputs.  Returns the
-    launch counts and that P frame's calls."""
-    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
-                        rd_mode=RDMode.RD_FULL, num_ref_frames=2)
-    frames = synthetic_video(1 + n_p, cfg.height, cfg.width, plants=64,
-                             diverge=128, quads=64, flicker=20)
-    counts, per_frame, recs, out, i_s, p_fps = drive(cfg, frames, "two_ref")
+def phase_two_ref(d, n_p=8):
+    """rd=FULL (the I frame's top-3 full-RD mode refinement) with two
+    reference pictures at 720p on path_video("two_ref"), its P frames
+    from the state i_frame saved in d after its I frame.  ME runs on
+    both references (4 slab searches per P frame), and every kernel call
+    of one P frame is held against its plain version on its recorded
+    inputs.  Returns the launch counts and that P frame's calls."""
+    cfg = path_cfg("two_ref")
+    counts, per_frame, recs, out, i_s, p_fps = drive(
+        cfg, path_video("two_ref", n_p), "two_ref", resumed("two_ref", d),
+        RESUMED)
     assert counts["slab_search"] == 4 * n_p, counts
     err = hold_against_plain(per_frame, "two-reference inputs")
     shares = []
@@ -794,14 +949,18 @@ def phase_two_ref(n_p=8):
     return counts, per_frame
 
 
+def all_intra_cfg(k=8, size=(1280, 720), **kw) -> EncoderConfig:
+    return EncoderConfig(width=size[0], height=size[1], qp=32,
+                         intra_period=1, tile_auto=True, scaling_lists=True,
+                         intra_frames_per_launch=k, **kw)
+
+
 def phase_all_intra(k=8, size=(1280, 720), tiles=(4, 3), n_steps=(146, 38)):
-    """This slice's path: all-intra with tile_auto (at 720p a 4x3 grid:
-    146 wavefront steps become 38) and the default scaling lists, one
-    chunk of k frames, then the first frame alone.  No kernel may
-    launch.  Returns the numbers it prints."""
-    cfg = EncoderConfig(width=size[0], height=size[1], qp=32,
-                        intra_period=1, tile_auto=True, scaling_lists=True,
-                        intra_frames_per_launch=k)
+    """The all-intra path: tile_auto (at 720p a 4x3 grid: 146 wavefront
+    steps become 38) and the default scaling lists, one chunk of k
+    frames, then the first frame alone.  No kernel may launch.  Returns
+    the numbers it prints and the chunk's Annex-B bytes per frame."""
+    cfg = all_intra_cfg(k, size)
     assert cfg.tiles == tiles, cfg.tiles
     slots = (cfg.padded_width // 32, cfg.padded_height // 32, 2)
     steps = {t: schedule.wavefront_schedule(*slots, t)[1]
@@ -849,64 +1008,53 @@ def phase_all_intra(k=8, size=(1280, 720), tiles=(4, 3), n_steps=(146, 38)):
         f"frame alone {one_s:.3f}s; bits {res['bits']}; Y PSNR "
         f"{[round(p, 2) for p in psnrs]}; step 10 again: {k} frames "
         f"{step_k}, 1 frame {step_1}; launches {counts}")
-    return res
+    return res, [f.nalus for f in out]
 
 
-def phase_cli(frames, cbr_stream, n_p=8):
-    """The console app at 720p on phase 6's video: (a) `python -m
-    homerhevc_torch` with the README's flags must write phase 6's stream;
+def phase_cli(d, frames, cbr_stream, wall_a, n_p=8):
+    """The console app at 720p on phase 6's video, d/in.yuv: (a) `python
+    -m homerhevc_torch` with the README's flags (a stage-A child, which
+    wrote d/cbr.265 and d/cli_a.out) must have written phase 6's stream;
     (b) cli.main in-process at rd=ULTRAFAST with performance_mode FULL and
     half-pel ME, every kernel call of one P frame held against its plain
     version.  Returns (b)'s launch counts, its largest difference from
     the plain versions and the numbers it prints."""
-    with tempfile.TemporaryDirectory() as d:
-        yuv = os.path.join(d, "in.yuv")
-        write_yuv(yuv, frames)
-        out = os.path.join(d, "cbr.265")
+    yuv = os.path.join(d, "in.yuv")
+    with open(os.path.join(d, "cli_a.out")) as f:
+        lines_a = f.read().strip().splitlines()
+    with open(os.path.join(d, "cbr.265"), "rb") as f:
+        assert f.read() == cbr_stream, \
+            "the console app's .265 differs from phase 6's stream"
+    for line in lines_a:
+        log(f"[cli] (a) {line}")
+    log(f"[cli] (a) python -m homerhevc_torch {' '.join(README_CBR)}: "
+        f"{wall_a:.3f}s (stage A), .265 == phase 6's stream "
+        f"({len(cbr_stream)} bytes)")
+    argv = ["-i", yuv, "-o", os.path.join(d, "ufast.265")] + CLI_UFAST
+    cfg = cli_cfg(CLI_UFAST)
+    encs, t_p = [], []
+    real = Encoder._dispatch_p_chunk
+
+    def p_chunk(self, *a, **k):
+        # the work before each P chunk ends before the chunk is queued:
+        # the I frame before the first, the first chunk before the
+        # second (timed, as drive() times its chunks after the first)
+        torch.cuda.synchronize()
+        encs.append(self)
+        t_p.append(time.perf_counter())
+        return real(self, *a, **k)
+    Encoder._dispatch_p_chunk = p_chunk
+    printed = io.StringIO()
+    try:
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "homerhevc_torch", "-i", yuv, "-o", out]
-            + README_CBR, cwd=ROOT, capture_output=True, text=True,
-            timeout=600)
-        wall_a = time.perf_counter() - t0
-        assert res.returncode == 0, \
-            f"python -m homerhevc_torch exited {res.returncode}:\n" \
-            f"{res.stderr[-4000:]}"
-        lines_a = res.stdout.strip().splitlines()
-        with open(out, "rb") as f:
-            assert f.read() == cbr_stream, \
-                "the console app's .265 differs from phase 6's stream"
-        for line in lines_a:
-            log(f"[cli] (a) {line}")
-        log(f"[cli] (a) python -m homerhevc_torch {' '.join(README_CBR)}: "
-            f"{wall_a:.3f}s, .265 == phase 6's stream ({len(cbr_stream)} "
-            f"bytes)")
-
-        argv = ["-i", yuv, "-o", os.path.join(d, "ufast.265")] + CLI_UFAST
-        cfg = cli_cfg(CLI_UFAST)
-        encs, t_p = [], []
-        real = Encoder._dispatch_p_chunk
-
-        def p_chunk(self, *a, **k):
-            # the work before each P chunk ends before the chunk is queued:
-            # the I frame before the first, the first chunk before the
-            # second (timed, as drive() times its chunks after the first)
-            torch.cuda.synchronize()
-            encs.append(self)
-            t_p.append(time.perf_counter())
-            return real(self, *a, **k)
-        Encoder._dispatch_p_chunk = p_chunk
-        printed = io.StringIO()
-        try:
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(printed):
-                rec = record_calls(lambda: assert_zero(cli.main(argv)))
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            counts = kernels.launch_counts()
-        finally:
-            Encoder._dispatch_p_chunk = real
+        with contextlib.redirect_stdout(printed):
+            rec = record_calls(lambda: assert_zero(cli.main(argv)))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = kernels.launch_counts()
+    finally:
+        Encoder._dispatch_p_chunk = real
     per_frame = {}
     for name, v in rec.items():
         assert counts[name] > 0, \
@@ -929,8 +1077,169 @@ def phase_cli(frames, cbr_stream, n_p=8):
         f"{t1 - t_p[1]:.3f}s -> P fps {p_fps:.3f}; last-frame Y PSNR "
         f"{p:.2f} dB; kernels equal to their plain versions on its inputs "
         f"(max abs err {err}); launches {counts}")
-    return counts, err, dict(wall_a=wall_a, cli_a=lines_a, i_s=i_s,
-                             p_fps=p_fps)
+    return counts, per_frame, dict(wall_a=wall_a, cli_a=lines_a, i_s=i_s,
+                                   p_fps=p_fps)
+
+
+# -------------------------------------------------------------- phase 10
+MULTI_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def multi_device_rank(rank, world, port, d, ckpt, backend, n_p):
+    """One rank of phase 10 (a child process): (a) phase 5's P frames in
+    row bands from phase 5's state after its I frame, the first chunk's
+    kernel calls recorded, the chunks after it timed; with gloo also (b)
+    phase 8's all-intra chunk in frame shards.  Writes its results to
+    d/rank{rank}.pkl and its recorded calls to d/calls{rank}.pt."""
+    torch.set_num_threads(4)
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    multihost.init_distributed(f"127.0.0.1:{port}", world, rank,
+                               backend=backend,
+                               timeout=datetime.timedelta(seconds=300))
+    try:
+        cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
+                            num_chips=world)
+        k = cfg.frames_per_launch
+        frames = fast_video(1 + n_p, cfg.height, cfg.width)[1:]
+        enc = Encoder(cfg, device=dev)
+        enc.load_checkpoint(ckpt)
+        out = []
+        kernels.reset_launch_counts()
+        rec = record_calls(lambda: [out.extend(enc.encode_async(*f))
+                                    for f in frames[:k]])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out += encode_all(enc, frames[k:])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res = dict(a=dict(n_bands=enc.n_bands,
+                          counts=kernels.launch_counts(),
+                          nalus=[f.nalus for f in out],
+                          p_fps=(n_p - k) / (t2 - t1)))
+        torch.save({name: [tuple(a.cpu() if isinstance(a, torch.Tensor)
+                                 else a for a in args)
+                           for args in v[:len(v) // k]]
+                    for name, v in rec.items()},
+                   os.path.join(d, f"calls{rank}.pt"))
+        if backend == "gloo":
+            cfg = all_intra_cfg(num_chips=world)
+            enc = Encoder(cfg, device=dev)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = encode_all(enc, fast_video(cfg.intra_frames_per_launch,
+                                             cfg.height, cfg.width))
+            torch.cuda.synchronize()
+            res["b"] = dict(n_frame_shards=enc.n_frame_shards,
+                            counts=kernels.launch_counts(),
+                            nalus=[f.nalus for f in out],
+                            seconds=time.perf_counter() - t0)
+        with open(os.path.join(d, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world, ckpt, backend, d, n_p):
+    """Start `world` ranks of multi_device_rank (spawned processes), wait
+    for each with a time limit, fail if any failed; returns their
+    results."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=multi_device_rank,
+                         args=(r, world, port, d, ckpt, backend, n_p))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MULTI_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * world, f"{backend} ranks exited {codes}"
+    res = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def phase_multi_device(ckpt, p_nalus, ai_nalus, n_p=8):
+    """Phase 10: the multi-device path on the card, two ranks of one
+    process group (gloo) on the one H100: (a) phase 5's P frames in two
+    CTU-row bands must give phase 5's bytes, frame by frame, every
+    kernel launched at the band shapes and, on each rank's recorded
+    inputs of one band P frame, equal to its plain version; (b) phase 8's
+    all-intra chunk in two frame shards must give phase 8's bytes, with
+    no kernel launched; (c) NCCL with one rank per card where the machine
+    has two cards.  Returns rank 1's (the lower band's) launch counts and
+    recorded calls of one P frame."""
+    world = 2
+    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
+                        num_chips=world)
+    k = cfg.frames_per_launch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        res = run_ranks(world, ckpt, "gloo", d, n_p)
+        calls = [torch.load(os.path.join(d, f"calls{r}.pt"))
+                 for r in range(world)]
+    wall = time.perf_counter() - t0
+    per_rank = []
+    for r, x in enumerate(res):
+        a, b = x["a"], x["b"]
+        assert a["n_bands"] == world, a["n_bands"]
+        assert len(a["nalus"]) == n_p, len(a["nalus"])
+        for i, (got, want) in enumerate(zip(a["nalus"], p_nalus)):
+            assert got == want, \
+                f"rank {r}: band P frame {i + 1} differs from phase 5's"
+        per_frame = {name: [tuple(t.to(DEV) if isinstance(t, torch.Tensor)
+                                  else t for t in args) for args in v]
+                     for name, v in calls[r].items()}
+        check_shapes(per_frame, cfg, world)
+        for name in KERNELS:
+            assert a["counts"][name] == n_p * len(per_frame[name]) > 0, \
+                (r, name, a["counts"][name], len(per_frame[name]))
+        err = hold_against_plain(per_frame, f"rank {r}'s band inputs")
+        assert b["n_frame_shards"] == world, b["n_frame_shards"]
+        assert not any(b["counts"].values()), b["counts"]
+        assert b["nalus"] == ai_nalus, f"rank {r}: all-intra shards differ"
+        per_rank.append(per_frame)
+        log(f"[multi_device] (a) gloo rank {r} of {world} on cuda:0: "
+            f"{a['n_bands']} row bands of {cfg.padded_height // world} rows; "
+            f"{n_p} P frames == phase 5's bytes; launches per band P frame "
+            f"{ {n: c // n_p for n, c in a['counts'].items()} }; kernels "
+            f"equal to their plain versions on its band's inputs (max abs "
+            f"err {err}); P fps {a['p_fps']:.3f} (the chunks after the "
+            f"first; no claim: two ranks share one card)")
+        log(f"[multi_device] (b) gloo rank {r}: {b['n_frame_shards']} frame "
+            f"shards of phase 8's chunk: {len(b['nalus'])} frames == phase "
+            f"8's bytes in {b['seconds']:.3f}s; launches {b['counts']}")
+    log(f"[multi_device] (a)+(b) two gloo ranks on one card: "
+        f"{wall:.1f}s with the ranks' start")
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory() as d:
+            nccl = run_ranks(world, ckpt, "nccl", d, n_p)
+        for r, x in enumerate(nccl):
+            assert x["a"]["nalus"] == p_nalus, f"nccl rank {r} differs"
+        log(f"[multi_device] (c) NCCL, one rank per card on "
+            f"{torch.cuda.device_count()} cards: P frames == phase 5's; P "
+            f"fps {[round(x['a']['p_fps'], 3) for x in nccl]}")
+    else:
+        log(f"[multi_device] (c) NCCL, one rank per card: NOT RUN: "
+            f"torch.cuda.device_count() is {torch.cuda.device_count()} "
+            f"(NCCL refuses two ranks on one card)")
+    return res[1]["a"]["counts"], per_rank[1]
 
 
 def assert_zero(code):
@@ -1061,48 +1370,93 @@ def kernel_report(counts, per_frame):
     return rows
 
 
+def stage_a(work, jobs) -> dict:
+    """Phase 3's cases, phase 9(a)'s console app and the I frames of
+    phases 5 and 7 in child processes, beside this process's I frame of
+    phase 6.  Returns phase 6's run, its video and every job's seconds."""
+    t0 = time.perf_counter()
+    frames = path_video("cbr")
+    write_yuv(os.path.join(work, "in.yuv"), frames)
+    start_parity(jobs, work)
+    start_job(jobs, "cli_a",
+              [sys.executable, "-m", "homerhevc_torch", "-i",
+               os.path.join(work, "in.yuv"), "-o",
+               os.path.join(work, "cbr.265")] + README_CBR,
+              work, env=dict(os.environ, OMP_NUM_THREADS="2"))
+    for label in ("main", "two_ref"):
+        start_job(jobs, f"{label}_i",
+                  [sys.executable, os.path.abspath(__file__), "--i-frame",
+                   label, work], work)
+    ends = {}
+    watch = threading.Thread(target=watch_jobs, args=(jobs, t0, ends),
+                             daemon=True)
+    watch.start()
+    cbr_run = drive_i(path_cfg("cbr"), frames)
+    ends["cbr_i (here)"] = time.perf_counter() - t0
+    wait_jobs(jobs, work, t0, watch)
+    log(f"[time] stage A {time.perf_counter() - t0:.1f}s; each job's end "
+        f"{ {k: round(v, 1) for k, v in ends.items()} }")
+    return dict(cbr=cbr_run, cbr_frames=frames, ends=ends)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_build()
-    size = dict(width=1280, height=720, qp=32, intra_period=100)
-    small = ["-widthxheight", "176x144"]
-    phase_compare([EncoderConfig(**size),
-                   EncoderConfig(rd_mode=RDMode.RD_FULL, num_ref_frames=2,
-                                 **size),
-                   cli_cfg(small + K1), cli_cfg(small + K2),
-                   EncoderConfig(**K3), cli_cfg(CLI_UFAST)])
-    phase_parity()
-    ufast_fps = phase_ultrafast()
-    fast_counts, fast_calls = phase_main()
-    frames, cbr_stream = phase_cbr()
-    counts, per_frame = phase_two_ref()
-    phase_all_intra()
-    cli_counts, cli_err, cli_nums = phase_cli(frames, cbr_stream)
+    work = tempfile.mkdtemp()
+    jobs = {}
+    try:
+        phase_build()
+        size = dict(width=1280, height=720, qp=32, intra_period=100)
+        small = ["-widthxheight", "176x144"]
+        phase_compare([EncoderConfig(**size),
+                       EncoderConfig(rd_mode=RDMode.RD_FULL, num_ref_frames=2,
+                                     **size),
+                       cli_cfg(small + K1), cli_cfg(small + K2),
+                       EncoderConfig(**K3), cli_cfg(CLI_UFAST)])
+        a = stage_a(work, jobs)
+        t_b = time.perf_counter()
+        phase_parity(work, a["ends"])
+        ufast_fps = phase_ultrafast()
+        fast_counts, fast_calls, p_nalus = phase_main(work)
+        cbr_stream = phase_cbr(a["cbr"], a["cbr_frames"])
+        counts, per_frame = phase_two_ref(work)
+        _, ai_nalus = phase_all_intra()
+        cli_counts, cli_calls, cli_nums = phase_cli(
+            work, a["cbr_frames"], cbr_stream, a["ends"]["cli_a"])
+        band_counts, band_calls = phase_multi_device(
+            os.path.join(work, "main_after_i.npz"), p_nalus, ai_nalus)
+    finally:
+        stop_jobs(jobs)
+        shutil.rmtree(work, ignore_errors=True)
     log(f"[cli] rd=ULTRAFAST P fps at 720p: performance_mode FULL with "
         f"half-pel ME through the app {cli_nums['p_fps']:.3f}, "
         f"performance_mode UFAST (phase 4) {ufast_fps:.3f}")
-    # the kernels line reports this slice's path (two references,
-    # rd=FULL); each row also carries the rd=FAST path's numbers
-    fast = {r["name"]: r for r in kernel_report(fast_counts, fast_calls)}
+    # the kernels line reports the two-reference rd=FULL path; each row
+    # also carries the rd=FAST path's, the console app's (9(b)) and the
+    # row-band path's (phase 10, the lower band's rank) numbers
+    paths = {label: {r["name"]: r for r in kernel_report(c, calls)}
+             for label, c, calls in (
+                 ("rd_fast_path", fast_counts, fast_calls),
+                 ("cli_path", cli_counts, cli_calls),
+                 ("band_path", band_counts, band_calls))}
     rows = kernel_report(counts, per_frame)
     for r in rows:
-        f = fast[r["name"]]
-        r["rd_fast_path"] = {k: f[k] for k in (
-            "launches", "ms", "ms_spread", "plain_ms", "bound_ms",
-            "library_ms")}
-        r["cli_path"] = dict(launches=cli_counts[r["name"]],
-                             max_abs_err=cli_err)
-        for label, x in (("two_ref", r), ("rd_fast", f)):
+        for label, by_name in paths.items():
+            f = by_name[r["name"]]
+            r[label] = {k: f[k] for k in (
+                "launches", "max_abs_err", "ms", "ms_spread", "plain_ms",
+                "bound_ms", "library_ms")}
+        for label, x in [("two_ref", r)] + [(k, r[k]) for k in paths]:
             lib = ("none" if x["library_ms"] is None
                    else f"{x['library_ms']:.4f}")
-            log(f"[kernel] {r['name']} ({label} path): {x['ms']:.4f} "
+            log(f"[kernel] {r['name']} ({label}): {x['ms']:.4f} "
                 f"ms/P-frame (spread {x['ms_spread'][0]:.4f}-"
                 f"{x['ms_spread'][1]:.4f}, plain {x['plain_ms']:.4f}, "
                 f"library {lib}, bound {x['bound_ms']:.5f} "
                 f"{r['bound_by']}), {x['launches']} launches")
-    log(f"[time] phases 1-9 {time.perf_counter() - t0:.1f}s")
+    log(f"[time] phases 1-10 {time.perf_counter() - t0:.1f}s (stage B "
+        f"{time.perf_counter() - t_b:.1f}s)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1116,10 +1470,14 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parity"]:
-        # a share of phase 3's cases, beside the parent's (phase_parity)
+        # a share of phase 3's cases (start_parity)
         dev, part, parts, path = sys.argv[2:6]
-        torch.set_num_threads(4)
+        torch.set_num_threads(2)
         with open(path, "wb") as f:
             pickle.dump(parity_results(dev, int(part), int(parts)), f)
+    elif sys.argv[1:2] == ["--i-frame"]:
+        # a path's I frame, checkpointed (i_frame)
+        torch.set_num_threads(2)
+        i_frame(*sys.argv[2:4])
     else:
         main()

@@ -10,11 +10,23 @@ streams (intra_period == 1: chunks of intra_frames_per_launch
 independent I frames, each wavefront step running the chunk's frames
 together, with tiles where cfg.tiles gives a grid) at every rd_mode
 (rd=FAST, the default; rd=ULTRAFAST; rd=FULL, whose I frame refines the
-top-3 intra modes by full RD), one or two reference frames, single
-device; fixed QP or CBR/VBR rate control, per-CTU QP with cu_qp_delta
-(under CBR/VBR or adaptive_qp), WPP substreams, flat quantization or
-the default scaling lists.  More than one chip or host raises
-NotImplementedError.
+top-3 intra modes by full RD), one or two reference frames; fixed QP
+or CBR/VBR rate control, per-CTU QP with cu_qp_delta (under CBR/VBR or
+adaptive_qp), WPP substreams, flat quantization or the default scaling
+lists.
+
+cfg.num_chips > 1 runs on the ranks of the default torch.distributed
+process group (one process per device, each holding its own Encoder of
+the same config and feeding it the same frames): P chunks in CTU-row
+bands (n_bands, the largest divisor of the CTU-row count up to
+num_chips and the world size) and all-intra chunks by frame
+(n_frame_shards = num_chips where it divides the chunk and enough ranks
+exist), bit-identical to one device; with fewer ranks it runs on what
+there is, one device without a group.  Every rank computes the same
+records and runs the same host stage, so rate control stays in lockstep
+with no collective of its own; the stream's I frames run replicated.
+cfg.num_hosts is accepted and not read, as in the reference: multi-host
+work goes through parallel/multihost.py.
 """
 from __future__ import annotations
 
@@ -25,6 +37,7 @@ from typing import BinaryIO, Optional
 import numpy as np
 import torch
 
+from homerhevc_torch import parallel
 from homerhevc_torch.config import EncoderConfig, PerfMode, RDMode
 from homerhevc_torch.entropy import binding
 from homerhevc_torch.models import inter_frame, intra_frame
@@ -52,12 +65,6 @@ def _pad_plane(p: np.ndarray, mult: int) -> np.ndarray:
     return np.pad(p, ((0, ph - h), (0, pw - w)), mode="edge")
 
 
-def check_supported(cfg: EncoderConfig):
-    """Raise NotImplementedError for configurations outside the port."""
-    if cfg.num_chips > 1 or cfg.num_hosts > 1:
-        raise NotImplementedError("not ported yet: num_chips/num_hosts > 1")
-
-
 def state_from_numpy(state: dict, device) -> dict:
     """Checkpoint state (numpy arrays / scalars, the save_checkpoint
     format) -> the same dict with the reference planes as int32 tensors
@@ -77,7 +84,6 @@ class Encoder:
 
     def __init__(self, cfg: EncoderConfig, device=None):
         self.cfg = cfg.validate()
-        check_supported(cfg)
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Encoder: CUDA is not available; pass "
@@ -103,7 +109,33 @@ class Encoder:
         self._search_nxn = not ultra and cfg.max_pred_depth >= 4
         self._tu_split = self._search_8x8 and cfg.max_intra_tr_depth >= 1
         self._rd_refine = cfg.rd_mode == RDMode.RD_FULL
+        self._shard(cfg)
         self._worker = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+
+    def _shard(self, cfg):
+        """The effective device counts (the reference's _p_mesh and
+        _chip_mesh over the default group's ranks): n_bands, the CTU-row
+        bands of an IPPP stream's P frames, and n_frame_shards, the
+        frame shards of an all-intra chunk (1 where not sharded), with
+        their group.  A rank outside a group of the first n ranks codes
+        the whole frame or chunk itself, as those ranks together do."""
+        world = parallel.world_size()
+        n = cfg.num_chips
+        rows = cfg.padded_height // cfg.ctu_size
+        self.n_bands = self.n_frame_shards = 1
+        self._p_group = self._i_group = None
+        if cfg.intra_period == 1:
+            k = max(cfg.intra_frames_per_launch, 1)
+            if 1 < n <= world and k % n == 0:
+                self.n_frame_shards = n
+                group, member = parallel.first_ranks(n)
+                self._i_group = group if member else None
+        else:
+            self.n_bands = max(d for d in range(1, min(n, rows, world) + 1)
+                               if rows % d == 0)
+            if self.n_bands > 1:
+                group, member = parallel.first_ranks(self.n_bands)
+                self._p_group = group if member else None
 
     def _p_knobs(self) -> dict:
         """P-frame knobs per rd_mode (the reference's speed ladder): the
@@ -239,7 +271,7 @@ class Encoder:
         if self.device.type != "cuda":
             return None
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(self.device))
         return ev
 
     def _i_knobs(self) -> dict:
@@ -254,6 +286,7 @@ class Encoder:
             chroma_qp_offset=cfg.chroma_qp_offset, vis_h=cfg.height,
             vis_w=cfg.width, true_size=cfg.code_true_size)
 
+    @torch.inference_mode()
     def _dispatch_i(self, y, u, v, compute_recon=False):
         ctu = self.cfg.ctu_size
         yp = _pad_plane(np.asarray(y, np.uint8), ctu)
@@ -274,6 +307,7 @@ class Encoder:
         self._gop_poc += 1
         return pend
 
+    @torch.inference_mode()
     def _dispatch_i_chunk(self, frames):
         """An all-intra chunk: intra_frames_per_launch independent I
         frames at one QP in one encode_i_chunk call; a partial chunk is
@@ -286,7 +320,11 @@ class Encoder:
             _pad_plane(np.asarray(f[i], np.uint8), ctu if i == 0 else ctu // 2)
             for f in frames])) for i in range(3)]
         qp = self._rc.start_pic(True)
-        out = intra_frame.encode_i_chunk(*planes, qp, **self._i_knobs())
+        if self._i_group is not None:
+            out = intra_frame.encode_i_chunk_sharded(
+                *planes, qp, group=self._i_group, **self._i_knobs())
+        else:
+            out = intra_frame.encode_i_chunk(*planes, qp, **self._i_knobs())
         self._ref = (out["recon_y"][-1], out["recon_u"][-1],
                      out["recon_v"][-1])
         self._ref2 = None
@@ -297,6 +335,7 @@ class Encoder:
         self._gop_poc = 1
         return pend
 
+    @torch.inference_mode()
     def _dispatch_p_chunk(self, frames, compute_recon=False, k=None):
         cfg = self.cfg
         ctu = cfg.ctu_size
@@ -336,7 +375,8 @@ class Encoder:
             self._to_dev(buf), *self._ref, k=k, vis_h=cfg.height,
             vis_w=cfg.width, ctu=ctu, qp=qps,
             qp_maps=None if qp_maps is None else self._to_dev(qp_maps),
-            **ref2_kw, **self._p_knobs())
+            group=self._p_group, n_bands=self.n_bands, **ref2_kw,
+            **self._p_knobs())
         self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
         if ref2_kw:
             self._ref2 = (out["recon2_y"], out["recon2_u"], out["recon2_v"])

@@ -4,25 +4,40 @@ The same flags, defaults and exits as the JAX package's app, the same
 read/encode/write loop and the same closing "%d frames in %d
 milliseconds: %f fps" and "kbps:" lines.  It runs on the CUDA device;
 `main(argv, device="cpu")` runs it on the CPU (the tests do), and
-without CUDA `main(argv)` fails as `Encoder` does.  More than one chip
-or host is not ported yet: `-num_chips` above 1 ends with a non-zero
-exit and the port's NotImplementedError message.
+without CUDA `main(argv)` fails as `Encoder` does.
+
+`-num_chips N` shards over the ranks of a torch.distributed process
+group, one process per device, as the JAX app shards over its devices:
+every rank reads the input and encodes, and rank 0 alone writes the
+.265, -o-raw and -stats files and prints.  With fewer ranks than N it
+runs on what there is (one device without a group).  Started by
+torchrun (WORLD_SIZE > 1 in the environment), main() joins the group
+itself: NCCL with each rank on cuda:LOCAL_RANK, or gloo on the CPU
+(`backend` overrides it).
 
 Usage:
   python -m homerhevc_torch -i in.yuv -o out.265 -widthxheight 1280x720 \
       -frame_rate 25 -intra_period 100 -qp 32 -n_frames 100
+  torchrun --nproc_per_node 2 -m homerhevc_torch -i in.yuv -o out.265 \
+      -widthxheight 1280x720 -num_chips 2
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from homerhevc_torch import parallel
 from homerhevc_torch.api import Encoder
 from homerhevc_torch.config import (BitrateMode, EncoderConfig, PerfMode,
                                     RDMode)
 from homerhevc_torch.metrics import FrameStats, StatsSink
+from homerhevc_torch.parallel import multihost
 
 
 HELP = """homerhevc_torch [-option] [value]...
@@ -57,9 +72,10 @@ options:
 -stats                          per-frame stats JSONL file
 -tiles                          CxR tile grid (all-intra), e.g. 4x2;
                                 "auto" picks one from the resolution
--num_chips                      default 1; more than 1 is not ported
-                                yet and exits with an error (the JAX
-                                app shards over N chips)
+-num_chips                      shard over N ranks of a torch.distributed
+                                group: all-intra chunks by frame, IPPP
+                                by CTU-row bands (bit-transparent);
+                                default 1
 -adaptive_qp                    0/1 per-CTU activity QP; default 0
 """
 
@@ -150,9 +166,11 @@ def read_frame(f, w, h):
     return y, u, v
 
 
-def main(argv=None, device=None):
+def main(argv=None, device=None, backend=None):
     """Run the app on `argv` (default sys.argv[1:]) on `device` (default
-    the CUDA device); returns the exit code."""
+    the CUDA device, cuda:LOCAL_RANK under torchrun); returns the exit
+    code.  Under torchrun it joins the process group with `backend`
+    (default NCCL on CUDA, gloo on the CPU) and leaves it at the end."""
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("no args passed!\ntype -h for help")
@@ -161,21 +179,42 @@ def main(argv=None, device=None):
     if not opts["infile"] or not opts["outfile"]:
         print("need -i and -o (use -h)")
         return 1
+    joined = False
+    torchrun = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if torchrun and not dist.is_initialized():
+        if device is None:
+            device = f"cuda:{os.environ.get('LOCAL_RANK', '0')}"
+        if backend is None:
+            backend = "gloo" if str(device).startswith("cpu") else "nccl"
+        if not str(device).startswith("cpu"):
+            torch.cuda.set_device(device)
+        multihost.init_distributed(backend=backend)
+        joined = True
     try:
-        enc = Encoder(cfg, device=device)
-    except NotImplementedError as e:
-        print(f"homerhevc_torch: {e}", file=sys.stderr)
-        return 1
-    sink = StatsSink(opts["stats"]) if opts["stats"] else None
-    raw = open(opts["rawfile"], "wb") if opts["rawfile"] else None
-    want_recon = raw is not None or sink is not None
+        if parallel.rank() == 0:
+            return _run(cfg, opts, device)
+        # the other ranks encode alongside and write nothing
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            return _run(cfg, opts, device, write=False)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(cfg, opts, device, write=True) -> int:
+    enc = Encoder(cfg, device=device)
+    sink = StatsSink(opts["stats"]) if opts["stats"] and write else None
+    raw = open(opts["rawfile"], "wb") if opts["rawfile"] and write else None
+    # the synchronous path wherever rank 0 needs reconstructions, on
+    # every rank alike
+    want_recon = bool(opts["rawfile"] or opts["stats"])
 
     n_in = 0
     n_out = 0
     total_bits = 0
     t0 = time.time()
     with open(opts["infile"], "rb") as fin, \
-            open(opts["outfile"], "wb") as fout:
+            open(opts["outfile"] if write else os.devnull, "wb") as fout:
         for _ in range(opts["skipped"]):
             read_frame(fin, cfg.width, cfg.height)
 

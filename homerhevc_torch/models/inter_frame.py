@@ -2,8 +2,9 @@
 
 Port of homerhevc_tpu/models/inter_frame.py (`encode_p_frame`,
 `encode_p_chunk`, `encode_p_chunk_packed`) for one or two reference
-pictures and one device, at the knobs of the reference's speed ladder
-(rd=FULL's P frame is rd=FAST's), with a slice QP per frame and an
+pictures, on one device or in CTU-row bands over a process group, at
+the knobs of the reference's speed ladder (rd=FULL's P frame is
+rd=FAST's), with a slice QP per frame and an
 optional per-CTU QP map (cu_qp_delta; WPP substreams reset the
 deblocking QP chain per CTU row), flat quantization or the default
 scaling lists (scaling_lists, in every TQ call); the serial
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from homerhevc_torch import tables
+from homerhevc_torch import parallel, tables
 from homerhevc_torch.models import intra_frame, schedule
 from homerhevc_torch.ops import (deblock, f32, interp, intra, me, packing,
                                  quant, rdbits, sao, transform)
@@ -153,7 +154,8 @@ def _cand_rd(cur_c, preds, qp, lam, s, sbh_scan, bits_mv, nc, n, inv=None,
 
 def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
                    lam, s, sbh_scan, cand_fields, inv=None, carry_in=None,
-                   ref_grid=None, ref_pads=None, scaling=False):
+                   ref_grid=None, ref_pads=None, scaling=False, y0: int = 0,
+                   neigh_refs=None):
     """Merge/skip RD arbitration: every candidate MV (left, top, own,
     global, zero) gets an exact prediction, a full T/Q/IQ/IT
     reconstruction and a forced-zero-residual variant; the per-block
@@ -163,7 +165,10 @@ def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
     winner.  With ref_grid [bh, bw] (the per-block reference) and
     ref_pads [2, Hp, Wp], candidates are (mv, ref) pairs: left/top take
     the neighbour's ref, global and zero ref 0, and the own candidate
-    pays its ref_idx bin; the winner's ref is carry["ref"]."""
+    pays its ref_idx bin; the winner's ref is carry["ref"], and
+    neigh_refs gives the (left, top) neighbours' refs (from the whole
+    frame's grid: on a row band, which starts at pixel row y0, the top
+    row's neighbours lie in the band above)."""
     n = cur_b.shape[0]
     bh, bw = mv_own.shape[:2]
     h, w = bh * s, bw * s
@@ -176,9 +181,7 @@ def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
                                 lt_mv, s)
     else:
         own_ref = ref_grid.reshape(-1)
-        lt_ref = torch.cat([
-            torch.cat([ref_grid[:, :1], ref_grid[:, :-1]], 1).reshape(-1),
-            torch.cat([ref_grid[:1], ref_grid[:-1]], 0).reshape(-1)])
+        lt_ref = torch.cat([r.reshape(-1) for r in neigh_refs])
         lt_pred = me.mc_luma_at(ref_pads, pos_y.repeat(2), pos_x.repeat(2),
                                 lt_mv, s, ref=lt_ref)
     bits_lt = torch.full((2, n), 3.0, device=dev)
@@ -187,8 +190,8 @@ def _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_own, pred_own, qp,
                                        inv=inv, scaling=scaling)
     if carry_in is None:
         med = cand_fields[2][0][0, 0]
-        glob_pred = _blocks(_mc_plane_luma(ref_pad, med, 0, h, w), s)
-        zero_pred = _blocks(ref_pad[me.REF_PAD:me.REF_PAD + h,
+        glob_pred = _blocks(_mc_plane_luma(ref_pad, med, y0, h, w), s)
+        zero_pred = _blocks(ref_pad[me.REF_PAD + y0:me.REF_PAD + y0 + h,
                                     me.REF_PAD:me.REF_PAD + w], s)
         own = mv_own.reshape(-1, 2)
         ogz_mv = torch.cat([own, cand_fields[2][0].reshape(-1, 2),
@@ -260,7 +263,7 @@ def _join_quads64(q):
 def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
                     elig_tile, qp, lam, bh, bw, n: int, sbh16, sbh32,
                     inv=None, coded=None, ref_pad=None, ref_flat=None,
-                    scaling=False):
+                    scaling=False, y0: int = 0):
     """Fold n x n groups of 16x16 tiles into one (16n)^2 CU when the
     parent RD (32 TB / four 16 TBs / zero residual; four 32 TBs at n=4)
     beats the children.  MV-uniform groups reuse the children's
@@ -270,7 +273,8 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
     them.  With ref_flat [nb] (two references; ref_pad is then the
     stacked [2, Hp, Wp] pad) a group of mixed references is neither
     uniform nor eligible, and the majority MV is taken at the group's
-    first tile's reference."""
+    first tile's reference.  y0: the pixel row of the tiles' first row
+    (a row band's offset in the frame)."""
     dev = cur_b.device
     gh, gw = bh // n, bw // n
     gy = torch.arange(gh, device=dev)
@@ -299,7 +303,7 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
     pred_t = pred_sel[flat].reshape(g, n * n, 16, 16)
     if ref_pad is not None:
         s_big = 16 * n
-        gpy = (gy * s_big)[:, None].expand(gh, gw).reshape(-1)
+        gpy = (y0 + gy * s_big)[:, None].expand(gh, gw).reshape(-1)
         gpx = (gx * s_big)[None, :].expand(gh, gw).reshape(-1)
         pred_maj = me.mc_luma_at(ref_pad, gpy.to(torch.int32),
                                  gpx.to(torch.int32), maj_mv, s_big,
@@ -368,7 +372,7 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
     elig = maj_ok & ~(elig_tile[flat].reshape(g, n * n).any(-1))
     if coded is not None:
         s_big = 16 * n
-        gpy = (gy * s_big)[:, None]
+        gpy = (y0 + gy * s_big)[:, None]
         gpx = (gx * s_big)[None, :]
         inside = (gpx + s_big <= coded[0]) & (gpy + s_big <= coded[1])
         elig = elig & inside.reshape(-1)
@@ -425,10 +429,11 @@ def _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y, cost_child,
 def quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y, cost16,
                          excl, qp, lam, bh: int, bw: int, sign_hiding: bool,
                          inv=None, coded=None, ref_pad=None, ref_flat=None,
-                         scaling=False):
+                         scaling=False, y0: int = 0):
     """Bottom-up CU consolidation 16 -> 32 -> 64 with TU RDO (qp, lam:
     per tile [nb]; ref_pad: non-uniform groups at their majority MV;
-    ref_flat: the per-tile reference, ref_pad then stacked).  Returns
+    ref_flat: the per-tile reference, ref_pad then stacked; y0: a row
+    band's pixel offset).  Returns
     (mv [bh,bw,2], level_y, recon_y, cbf_y [bh,bw], cu_depth, tr_depth,
     chroma16 [bh//2, bw//2])."""
     dev = cur_b.device
@@ -440,7 +445,8 @@ def quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y, cost16,
     (mv_flat, level_y, recon_y, pred_sel, cost32, take32, cbf32_t, trd32,
      tidx32) = _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y,
                                cost16, excl, qp, lam, bh, bw, 2, sbh16,
-                               sbh32, inv, coded, ref_pad, ref_flat, scaling)
+                               sbh32, inv, coded, ref_pad, ref_flat, scaling,
+                               y0)
     cost32_tile = torch.zeros((bh * bw,), dtype=torch.float32, device=dev)
     cost32_tile[tidx32.reshape(-1)] = torch.repeat_interleave(
         cost32 / 4.0, 4)
@@ -448,7 +454,7 @@ def quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y, cost16,
      tidx64) = _quadtree_level(cur_b, pred_sel, mv_flat, level_y, recon_y,
                                cost32_tile, excl, qp, lam, bh, bw, 4,
                                sbh16, sbh32, inv, coded, ref_pad, ref_flat,
-                               scaling)
+                               scaling, y0)
     cu_depth = torch.full((bh * bw,), 2, dtype=torch.int32, device=dev)
     tr_depth = torch.zeros((bh * bw,), dtype=torch.int32, device=dev)
     cbf_y = (level_y != 0).any(-1).any(-1)
@@ -829,17 +835,20 @@ def _intra_fallback_chroma(rec_blocks, orig_blocks, level_c, cbf_c, sel,
                       (lvl != 0).any(-1).any(-1)).reshape(bh, bw))
 
 
-def _maybe_scene(sad_me, cand_count, h: int, w: int):
+def _maybe_scene(sad_me, cand_count, h: int, w: int, n_bands: int = 1):
     """The cheap scene-change signals: many fallback candidates, or a
     mean ME cost above 6 per pixel (sad_me [h/16, w/16] float32, summed
-    in XLA-CPU's order and divided as the reference does, ops/f32)."""
+    in XLA-CPU's order, band by band over n_bands row bands as the
+    row-sharded reference sums it, and divided as the reference does,
+    ops/f32)."""
     nb16 = (h // 16) * (w // 16)
-    mean_sad_px = f32.grid_sum(sad_me.reshape(h // 16, w // 16)) \
+    mean_sad_px = f32.band_sum(sad_me.reshape(h // 16, w // 16), n_bands) \
         * float(np.float32(1.0 / (h * w)))
     return (cand_count > nb16 // 4) | (mean_sad_px > 6.0)
 
 
-def _intra_pref_count(cur, sad_me, cand_count, qpt, ctu: int):
+def _intra_pref_count(cur, sad_me, cand_count, qpt, ctu: int,
+                      n_bands: int = 1):
     """The frame's intra-preference count for the scene-change restart:
     blocks whose dense 35-mode SATD cost beats the ME cost, counted when
     the cheap signals suggest a scene change (_maybe_scene), else 0.  The
@@ -849,20 +858,24 @@ def _intra_pref_count(cur, sad_me, cand_count, qpt, ctu: int):
     sqrt_lam = torch.sqrt(rdbits.rd_lambda_f32(qpt, True))
     _, ip_cost = intra_frame._dense_best(cur, 16, ctu, sqrt_lam)
     count = (ip_cost.reshape(-1) < sad_me.reshape(-1)).sum(dtype=torch.int32)
-    return torch.where(_maybe_scene(sad_me, cand_count, h, w), count, 0)
+    return torch.where(_maybe_scene(sad_me, cand_count, h, w, n_bands),
+                       count, 0)
 
 
 def _split8(cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
             cbf_y, is_intra, dil, inv16, qp_t, lam_t, sign_hiding,
-            ref_sel=None, scaling=False):
+            ref_sel=None, scaling=False, bands=None, row0: int = 0):
     """8x8 inter CUs: 16x16 blocks with divergent motion re-code as four
     8x8 CUs with their own MVs (+-3 integer pel around the CU's MV,
     keeping its subpel phase) and 8x8 TBs, when the RD with the split's
     header and MV bits beats the 16x16 winner.  Candidates: the
     _NXN_CAP eligible blocks of largest residual SAD.  With ref_sel [nb]
     (ref_pad then the stacked [2, Hp, Wp] pad) each sub-CU searches and
-    predicts from its CU's reference.  Returns (nxn16 [nb], mv8 per 8x8
-    [4nb, 2], cbf8 [4nb], level_y, recon_y, cbf_y, cost16)."""
+    predicts from its CU's reference.  On a row band (bands, a
+    parallel.RowBands, and its pixel offset row0) the candidates are
+    chosen over the whole frame's grid, so every band takes the blocks
+    one device would.  Returns (nxn16 [nb], mv8 per 8x8 [4nb, 2], cbf8
+    [4nb], level_y, recon_y, cbf_y, cost16)."""
     r8 = 3
     bh, bw = mv.shape[:2]
     nb = bh * bw
@@ -874,9 +887,14 @@ def _split8(cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
     elig = (is_intra == 0) & ~dil.reshape(-1)
     if inv16 is not None:
         elig = elig & ~inv16
-    kv_f, sel_gf = topk_stable(torch.where(elig, resid16, -1.0), capb)
-    keep = torch.zeros((nb,), dtype=torch.bool, device=dev)
+    key = torch.where(elig, resid16, -1.0)
+    if bands is not None:
+        key = bands.gather(key.reshape(bh, bw)).reshape(-1)
+    kv_f, sel_gf = topk_stable(key, min(_NXN_CAP, key.shape[0]))
+    keep = torch.zeros_like(key, dtype=torch.bool)
     keep[sel_gf] = kv_f > 0
+    if bands is not None:
+        keep = bands.band(keep.reshape(-1, bw)).reshape(-1)
     kb, bsel = topk_stable(torch.where(
         keep & elig, (1 << 30) - torch.arange(nb, device=dev), 0), capb)
     okb = kb > 0
@@ -886,7 +904,8 @@ def _split8(cur, cur_b, ref_pad, mv, pred_sel, cost16, level_y, recon_y,
     pu_sel = ((2 * byi[:, None] + qdy) * bw8
               + 2 * bxi[:, None] + qdx).reshape(-1)
     cur8 = _blocks(cur, 8)[pu_sel]                     # [4capb, 8, 8]
-    p8y = (torch.div(pu_sel, bw8, rounding_mode="floor") * 8).to(torch.int32)
+    p8y = (row0 + torch.div(pu_sel, bw8, rounding_mode="floor") * 8) \
+        .to(torch.int32)
     p8x = ((pu_sel % bw8) * 8).to(torch.int32)
     mv16_q = mv16_8[pu_sel]
     g8y = me.REF_PAD + p8y + (mv16_q[:, 0] >> 2) - r8
@@ -1094,7 +1113,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                    inter_nxn: bool = False, true_size: bool = False,
                    wpp_substreams: bool = False, scaling_lists: bool = False,
                    ref2_y=None, ref2_u=None, ref2_v=None, has_ref2=None,
-                   **unsupported) -> dict:
+                   group=None, n_bands: int = 1, **unsupported) -> dict:
     """Encode one P frame against one or two references.  y/u/v:
     uint8/int32 CTU-padded planes; ref_*: int32 reconstructed (deblocked,
     SAO'd) reference planes of the same shapes; qp: the slice QP; qp_map:
@@ -1105,18 +1124,38 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     merge/skip, split8, the quadtree, chroma MC, deblocking and the
     record's ref_idx.  has_ref2 (a bool tensor, default True) masks the
     pick to ref 0 where the second reference does not exist yet.
+
+    Row bands (the reference's axis_name body): with `group`, a process
+    group of n_bands ranks, y/u/v are this rank's CTU-row band of the
+    frame (band i on rank i) and the references are whole.  The
+    cross-band points gather the bands in one collective each: the ME
+    median, the merge candidates' neighbour fields, the intra fallback
+    and the scene gate (run replicated on the gathered frame), the 8x8
+    split's candidate cap (over the whole grid), frame assembly (with
+    the RC distortion), the vertical deblocking pass (band-local, then
+    gathered); the horizontal pass, SAO and packing run on the whole
+    frame.  Every rank returns the whole frame's outputs, bit-identical
+    to one device.  With group None and n_bands > 1, one device codes
+    the whole frame as n_bands ranks would (the scene gate sums band by
+    band).
+
     Returns a dict of tensors (recon planes, coefficient planes, mv,
     cbf, `packed`, `packed_full`; `ref_idx` with two references)."""
     if fallback_serial:
         raise NotImplementedError("serial intra-fallback pass")
     if unsupported:
         raise NotImplementedError(f"options {sorted(unsupported)}")
-    h, w = y.shape
+    hb, w = y.shape                   # the band (the frame unless sharded)
     dev = y.device
+    sharded = group is not None
+    bands = parallel.RowBands(group, n_bands)
+    h = hb * n_bands if sharded else hb
+    row0 = bands.index * hb           # the band's first pixel row
     s = block
     cs = block // 2
-    bh, bw = h // s, w // s
+    bh, bw = hb // s, w // s
     nb = bh * bw
+    BH, NB = h // s, (h // s) * bw    # the whole frame's block grid
     qp = int(qp)
     qp_c = int(tables.CHROMA_QP_TABLE[min(max(qp + chroma_qp_offset, 0),
                                           57)])
@@ -1124,13 +1163,17 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     qpt = torch.full((), qp, dtype=torch.int64, device=dev)
     lam = rdbits.rd_lambda_f32(qpt, False)
     lam_c = rdbits.rd_lambda_f32(torch.full_like(qpt, qp_c), False)
-    # per-16-block QPs and lambdas of every RD decision
+    # per-16-block QPs and lambdas of every RD decision (the map is the
+    # whole frame's; the band's rows are sliced out)
     ncy, ncx = h // ctu, w // ctu
     qp_map = torch.full((ncy, ncx), qp, dtype=torch.int64, device=dev) \
         if qp_map is None else torch.as_tensor(qp_map, dtype=torch.int64,
                                                device=dev)
-    qp_t = _rep2(qp_map, ctu // s).reshape(-1)
-    qp_ct = _chroma_qp_table(dev)[(qp_t + chroma_qp_offset).clamp(0, 57)]
+    qp_t_full = _rep2(qp_map, ctu // s)                  # [BH, bw]
+    qp_ct_full = _chroma_qp_table(dev)[
+        (qp_t_full.reshape(-1) + chroma_qp_offset).clamp(0, 57)]
+    qp_t = bands.band(qp_t_full).reshape(-1)
+    qp_ct = bands.band(qp_ct_full)
     lam_t = rdbits.rd_lambda_f32(qp_t, False)
     lam_ct = rdbits.rd_lambda_f32(qp_ct, False)
     sbh_scan = tuple(tables.scan_order(s, tables.SCAN_DIAG)) \
@@ -1167,18 +1210,25 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     u32 = u.to(torch.int32)
     v32 = v.to(torch.int32)
 
+    # the global-motion candidate sees the whole field
+    median_fn = None
+    if sharded:
+        def median_fn(mv0):
+            return me.field_median(bands.gather(mv0))
     multi_ref = ref2_y is not None
     ref_sel = None
     with record_function("p.me"):
         mv, sad_me, pred = me.motion_estimate(cur, refy, block=s,
                                               precision=me_precision,
                                               subpel_r=me_subpel_r,
-                                              sqrt_lam=torch.sqrt(lam))
+                                              sqrt_lam=torch.sqrt(lam),
+                                              row0=row0, median_fn=median_fn)
         if multi_ref:
             ref2y = ref2_y.to(torch.int32)
             mv1, sad1, pred1 = me.motion_estimate(
                 cur, ref2y, block=s, precision=me_precision,
-                subpel_r=me_subpel_r, sqrt_lam=torch.sqrt(lam))
+                subpel_r=me_subpel_r, sqrt_lam=torch.sqrt(lam), row0=row0,
+                median_fn=median_fn)
             # per-block reference pick: ref 1 pays a sqrt(lambda)-priced
             # ref_idx bin at the block's own lambda (sad_me stays ref 0's
             # cost: the intra-preference count reads it)
@@ -1189,16 +1239,17 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
             ref_sel = sel.to(torch.int32)
             mv = torch.where(sel[..., None], mv1, mv)
             pred = torch.where(sel.reshape(-1)[:, None, None], pred1, pred)
-    pos_y = torch.arange(bh, dtype=torch.int32,
-                         device=dev).repeat_interleave(bw) * s
+    pos_y = row0 + torch.arange(bh, dtype=torch.int32,
+                                device=dev).repeat_interleave(bw) * s
     pos_x = (torch.arange(bw, dtype=torch.int32, device=dev) * s).repeat(bh)
     cur_b = _blocks(cur, s)
-    inv16 = None
+    inv_full = inv16 = None
     if vis_h is not None and vis_w is not None \
             and (vis_h < h or vis_w < w):
-        iy = torch.arange(bh, device=dev) * s >= vis_h
+        iy = torch.arange(BH, device=dev) * s >= vis_h
         ix = torch.arange(bw, device=dev) * s >= vis_w
-        inv16 = (iy[:, None] | ix[None, :]).reshape(-1)
+        inv_full = (iy[:, None] | ix[None, :]).reshape(-1)
+        inv16 = bands.band(inv_full)
     ref_pad = me.pad_edge(refy, me.REF_PAD).contiguous()
     ref_pads = None
     if multi_ref:
@@ -1207,15 +1258,26 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
 
     with record_function("p.merge"):
         # round 2 re-evaluates only the left/top candidates, built from
-        # round 1's winners (and their references)
+        # round 1's winners (and their references), from the whole
+        # frame's fields
         mv_me, carry = mv, None
         for _ in range(merge_rounds):
+            nrefs = None
+            if ref_sel is None:
+                mv_full = bands.gather(mv)
+            else:
+                mv_full, r_full = bands.gather(mv, ref_sel)
+                nrefs = (bands.band(torch.cat([r_full[:, :1],
+                                               r_full[:, :-1]], 1)),
+                         bands.band(torch.cat([r_full[:1], r_full[:-1]], 0)))
+            cands = [(bands.band(c), m)
+                     for c, m in merge_candidate_fields(mv_full)]
             mv_flat, level_y, recon_y, pred_sel, cost16, carry = \
                 _merge_skip_rd(cur_b, ref_pad, pos_y, pos_x, mv_me, pred,
-                               qp_t, lam_t, s, sbh_scan,
-                               merge_candidate_fields(mv), inv=inv16,
+                               qp_t, lam_t, s, sbh_scan, cands, inv=inv16,
                                carry_in=carry, ref_grid=ref_sel,
-                               ref_pads=ref_pads, scaling=scaling_lists)
+                               ref_pads=ref_pads, scaling=scaling_lists,
+                               y0=row0, neigh_refs=nrefs)
             mv = mv_flat.reshape(bh, bw, 2)
             if multi_ref:
                 ref_sel = carry["ref"].reshape(bh, bw)
@@ -1223,26 +1285,36 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     ref_pad_sel = ref_pad if ref_pads is None else ref_pads
     cbf_y = (level_y != 0).any(-1).any(-1).reshape(bh, bw)
 
-    is_intra = torch.zeros((nb,), dtype=torch.int32, device=dev)
-    intra_modes = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    # the intra fallback's state is the whole frame's (it runs replicated
+    # on the gathered frame when sharded)
+    is_intra_f = torch.zeros((NB,), dtype=torch.int32, device=dev)
+    intra_modes = torch.zeros((NB,), dtype=torch.int32, device=dev)
     cand_count = torch.zeros((), dtype=torch.int32, device=dev)
     fb_rounds = []
+    cur_full = None if sharded else cur
     if intra_fallback:
+        full = bands.gather(cur_b, recon_y, level_y, cbf_y, pred_sel, sad_me)
         with record_function("p.fallback"):
-            (recon_y, level_y, cbf_y, is_intra, intra_modes, cand_count,
+            (rec_f, lvl_f, cbf_f, is_intra_f, intra_modes, cand_count,
              fb_rounds) = _intra_fallback_luma(
-                cur_b, recon_y, level_y, cbf_y, pred_sel, qp_t, s, bh, bw,
-                h, w, sbh_scan, fallback_rounds, inv16, geom_l,
-                scaling_lists)
+                full[0], full[1], full[2], full[3], full[4],
+                qp_t_full.reshape(-1), s, BH, bw, h, w, sbh_scan,
+                fallback_rounds, inv_full, geom_l, scaling_lists)
+            recon_y = bands.band(rec_f)
+            level_y = bands.band(lvl_f)
+            cbf_y = bands.band(cbf_f)
+        if sharded:
+            cur_full = _unblocks(full[0], h, w)
         with record_function("p.intra_pref"):
             cand_count = torch.maximum(
-                cand_count, _intra_pref_count(cur, sad_me, cand_count, qpt,
-                                              ctu))
+                cand_count, _intra_pref_count(cur_full, full[5], cand_count,
+                                              qpt, ctu, n_bands))
+    is_intra = bands.band(is_intra_f)
 
     # blocks whose recon a fallback block's references may have read stay
     # as they are through split8 and the quadtree
-    dil = _neigh8(is_intra.reshape(bh, bw).to(torch.bool)) \
-        | is_intra.reshape(bh, bw).to(torch.bool)
+    ig = is_intra_f.reshape(BH, bw).to(torch.bool)
+    dil = bands.band(_neigh8(ig) | ig)
     nxn16 = torch.zeros((nb,), dtype=torch.bool, device=dev)
     mv8_pu = cbf8q = None
     if inter_nxn:
@@ -1250,7 +1322,8 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
             nxn16, mv8_pu, cbf8q, level_y, recon_y, cbf_y, cost16 = _split8(
                 cur, cur_b, ref_pad_sel, mv, pred_sel, cost16, level_y,
                 recon_y, cbf_y, is_intra, dil, inv16, qp_t, lam_t,
-                sign_hiding, ref_sel=ref_flat, scaling=scaling_lists)
+                sign_hiding, ref_sel=ref_flat, scaling=scaling_lists,
+                bands=bands if sharded else None, row0=row0)
 
     with record_function("p.quadtree"):
         mv, level_y, recon_y, cbf_y, cu_depth, tr_depth, chroma16 = \
@@ -1260,7 +1333,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                                  bh, bw, sign_hiding, inv=inv16, coded=coded,
                                  ref_pad=ref_pad_sel if quadtree_majority
                                  else None, ref_flat=ref_flat,
-                                 scaling=scaling_lists)
+                                 scaling=scaling_lists, y0=row0)
         # split blocks become four 8x8 CUs (depth 3, TU8 leaves)
         cu_depth = torch.where(nxn16.reshape(bh, bw), 3, cu_depth) \
             .to(torch.int32)
@@ -1281,20 +1354,54 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                 rec_c, cbf_c, qp_ct, lam_cs, cs, bh, bw, sign_hiding,
                 ref_sel=ref_flat, scaling=scaling_lists)
 
+    # RC distortion signal: the mean per-16-block luma SAD of the
+    # unfiltered reconstruction (an exact integer sum over the bands)
+    dsum = (recon_y - cur_b).abs().sum()
+    out_y = _unblocks(recon_y, hb, w)
+    if sharded:
+        # frame assembly: the band's maps to the whole frame's (one
+        # gather); the luma reconstruction follows its vertical deblock
+        with record_function("p.assemble"):
+            parts = [level_y, lvl_c[0], lvl_c[1], rec_c[0], rec_c[1],
+                     cbf_y, cbf_c[0], cbf_c[1], mv, cu_depth, tr_depth,
+                     nxn16.reshape(bh, bw), u32, v32, dsum]
+            if multi_ref:
+                parts.append(ref_sel)
+            if mv8_pu is not None:
+                parts += [mv8_pu.reshape(2 * bh, 2 * bw, 2),
+                          cbf8q.reshape(2 * bh, 2 * bw),
+                          cbf8c[0].reshape(2 * bh, 2 * bw),
+                          cbf8c[1].reshape(2 * bh, 2 * bw)]
+            if cur_full is None:
+                parts.append(cur)
+            g = bands.gather(*parts)
+            (level_y, lvl_c[0], lvl_c[1], rec_c[0], rec_c[1], cbf_y,
+             cbf_c[0], cbf_c[1], mv, cu_depth, tr_depth, nxn16, u32, v32,
+             dsum) = g[:15]
+            dsum = dsum.sum()
+            nxn16 = nxn16.reshape(-1)
+            rest = iter(g[15:])
+            if multi_ref:
+                ref_sel = next(rest)
+            if mv8_pu is not None:
+                mv8_pu = next(rest).reshape(-1, 2)
+                cbf8q, *cbf8c = (next(rest).reshape(-1) for _ in range(3))
+            if cur_full is None:
+                cur_full = next(rest)
+        bh, nb = BH, NB
+    dist16 = dsum // nb
+
     if intra_fallback:
         # per round, so a later round's references read the chroma the
-        # earlier rounds committed
+        # earlier rounds committed (whole frame, replicated when sharded)
         with record_function("p.fallback_chroma"):
             orig_c = [_blocks(u32, cs), _blocks(v32, cs)]
             for sel, ok, best in fb_rounds:
                 for p in range(2):
                     rec_c[p], lvl_c[p], cbf_c[p] = _intra_fallback_chroma(
                         rec_c[p], orig_c[p], lvl_c[p], cbf_c[p], sel, ok,
-                        best, cs, bh, bw, h, w, qp_ct, sbh_scan_c, geom_c,
-                        scaling_lists)
-
-    dist16 = (recon_y - cur_b).abs().sum() // nb
-    out_y = _unblocks(recon_y, h, w)
+                        best, cs, bh, bw, h, w, qp_ct_full, sbh_scan_c,
+                        geom_c, scaling_lists)
     out_u = _unblocks(rec_c[0], h // 2, w // 2)
     out_v = _unblocks(rec_c[1], h // 2, w // 2)
 
@@ -1315,7 +1422,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
         with record_function("p.deblock"):
             qp_g16 = _effective_qp16(qp, qp_map, cbf_y | cbf_c[0] | cbf_c[1],
                                      cu_depth, ctu, s, wpp_substreams)
-            ii = is_intra.reshape(bh, bw) if intra_fallback else None
+            ii = is_intra_f.reshape(bh, bw) if intra_fallback else None
             tb2 = (tr_depth == 0) & (cu_depth == 1) | (cu_depth == 0)
             bs_v, bs_h = inter_boundary_strength(
                 cbf_y, mv, s, h, w, is_intra=ii, tb2=tb2,
@@ -1328,7 +1435,9 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                 bs_v[:, coded[0] // 8:] = 0
                 bs_h[coded[1] // 8:, :] = 0
             qp_v, qp_h = _edge_qp_maps(qp_g16, h, w, 16)
-            out_y = deblock._luma_pass(out_y, bs_v, qp_v)
+            # the vertical pass is row-local: each band filters its rows
+            out_y = bands.gather(deblock._luma_pass(
+                out_y, bands.band(bs_v), bands.band(qp_v)))
             out_y = deblock._luma_pass(out_y.T.contiguous(), bs_h.T,
                                        qp_h.T).T.contiguous()
             if intra_fallback:
@@ -1344,12 +1453,14 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                     deblock._chroma_pass(deblock._chroma_pass(
                         p, bs_vc, qpcv).T.contiguous(), bs_hc.T,
                         qpch.T).T.contiguous() for p in (out_u, out_v))
+    else:
+        out_y = bands.gather(out_y)
 
     sao_fields = None
     if sao_enabled:
         with record_function("p.sao"):
             out_y, out_u, out_v, sao_fields = sao.sao_frame(
-                cur, u32, v32, out_y, out_u, out_v, lam, lam_c, ctu,
+                cur_full, u32, v32, out_y, out_u, out_v, lam, lam_c, ctu,
                 coded=None if cw8 is None else (ch8, cw8))
 
     cbf = torch.stack([cbf_y, cbf_c[0], cbf_c[1]]).to(torch.int32)
@@ -1384,7 +1495,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                  (torch.zeros((nb,), **i16) if ref_sel is None
                   else ref_sel.to(torch.int16).reshape(-1)),
                  cbf.to(torch.int16).reshape(-1),
-                 is_intra.to(torch.int16),
+                 is_intra_f.to(torch.int16),
                  intra_modes.to(torch.int16),
                  cu_depth.to(torch.int16).reshape(-1),
                  tr_depth.to(torch.int16).reshape(-1),
@@ -1402,7 +1513,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
 
 def encode_p_chunk(ys, us, vs, ref_y, ref_u, ref_v, qp, qp_maps=None,
                    ref2_y=None, ref2_u=None, ref2_v=None, has_ref2=None,
-                   **flags) -> dict:
+                   group=None, n_bands: int = 1, **flags) -> dict:
     """K consecutive P frames, each predicted from the previous one's
     reconstruction.  ys uint8/int32 [K, H, W]; qp int or K ints; qp_maps
     None or a tensor of K per-CTU QP maps [K, ctus_y, ctus_x].  With
@@ -1410,8 +1521,17 @@ def encode_p_chunk(ys, us, vs, ref_y, ref_u, ref_v, qp, qp_maps=None,
     one two back; has_ref2 [K] bool (a tensor) masks the frames whose
     second reference does not exist yet.  Returns dict(recon_* of the
     last frame, recon2_* of the one before with two references,
-    packed [K, L], packed_full [K, L2], coeff_* [K, ...])."""
+    packed [K, L], packed_full [K, L2], coeff_* [K, ...]).
+
+    Row bands: with `group` (n_bands ranks, every one passing the whole
+    chunk) each rank codes its CTU-row band of every frame against the
+    whole references, and every output is the whole frame's on every
+    rank (encode_p_frame's group mode); n_bands > 1 without a group codes
+    on this device what n_bands ranks would."""
     k = ys.shape[0]
+    assert (ys.shape[1] // n_bands) % flags.get("ctu", 64) == 0, \
+        "band height must be CTU-aligned"
+    bands = parallel.RowBands(group, n_bands)
     qps = [int(qp)] * k if np.ndim(qp) == 0 else [int(q) for q in qp]
     ref = (ref_y, ref_u, ref_v)
     ref2 = None if ref2_y is None else (ref2_y, ref2_u, ref2_v)
@@ -1421,9 +1541,10 @@ def encode_p_chunk(ys, us, vs, ref_y, ref_u, ref_v, qp, qp_maps=None,
         if ref2 is not None:
             kw = dict(ref2_y=ref2[0], ref2_u=ref2[1], ref2_v=ref2[2],
                       has_ref2=None if has_ref2 is None else has_ref2[j])
-        out = encode_p_frame(ys[j], us[j], vs[j], *ref, qp=qps[j],
+        out = encode_p_frame(bands.band(ys[j]), bands.band(us[j]),
+                             bands.band(vs[j]), *ref, qp=qps[j],
                              qp_map=None if qp_maps is None else qp_maps[j],
-                             **kw, **flags)
+                             group=group, n_bands=n_bands, **kw, **flags)
         if ref2 is not None:
             ref2 = ref
         ref = (out["recon_y"], out["recon_u"], out["recon_v"])

@@ -9,7 +9,8 @@ the default scaling lists (`scaling_lists`, in every TQ call).
 pass: each wavefront step reconstructs the step's slots of all K frames
 as one batch (a per-slot frame index next to the slot's position), so a
 step costs one frame's launches whatever K is; `encode_frame` is its
-K = 1 case.
+K = 1 case.  `encode_i_chunk_sharded` splits a chunk's frames over the
+ranks of a process group.
 
 1. Dense decision (frame by frame): luma modes at 32, 16 and
    (search_8x8 / search_nxn) 8 and 4, and the 5-candidate chroma modes,
@@ -36,7 +37,7 @@ import types
 import numpy as np
 import torch
 
-from homerhevc_torch import tables
+from homerhevc_torch import parallel, tables
 from homerhevc_torch.models import schedule
 from homerhevc_torch.ops import (deblock, f32, intra, quant, rdbits, sao,
                                  transform)
@@ -864,6 +865,21 @@ def encode_i_chunk(ys, us, vs, qp: int, ctu: int = 64,
         out["packed"] = torch.cat(parts)
         outs.append(out)
     return {key: torch.stack([t[key] for t in outs]) for key in outs[0]}
+
+
+def encode_i_chunk_sharded(ys, us, vs, qp: int, *, group, **flags) -> dict:
+    """encode_i_chunk with the chunk's frame axis split over the ranks of
+    `group` (a process group of n ranks, every one passing the whole
+    chunk; K a multiple of n): rank r codes frames [r K/n, (r+1) K/n),
+    and the records are gathered in frame order, so every rank returns
+    the whole chunk's dict, bit-identical to one device (all-intra
+    frames are independent)."""
+    m = ys.shape[0] // torch.distributed.get_world_size(group)
+    assert m * torch.distributed.get_world_size(group) == ys.shape[0]
+    r = torch.distributed.get_rank(group)
+    part = slice(r * m, (r + 1) * m)
+    out = encode_i_chunk(ys[part], us[part], vs[part], qp, **flags)
+    return dict(zip(out, parallel.gather_rows(group, *out.values())))
 
 
 def encode_frame(y, u, v, qp: int, **flags) -> dict:

@@ -19,6 +19,10 @@ formulas with XLA on the CPU, which
   are 2, 4 or 8 rows of at most 8, else element by element; a block of
   16-32 rows by 4 or 8 columns (the grid, or an unpadded window of 32
   rows) is summed in vector lanes instead (`_lane_sum`),
+* sums a grid cut into row bands over n devices (jnp.sum per band, then
+  psum) as the band sums added left to right in device order: the
+  CPU's all-reduce folds the devices' values in order (read off a
+  shard_map program on 2, 3, 4 and 8 virtual CPU devices),
 * divides by a constant as a multiply by its float32 reciprocal,
 * evaluates `2.0 ** y` as the correctly rounded power of two.
 
@@ -125,6 +129,13 @@ def grid_sum(x: torch.Tensor) -> torch.Tensor:
             x = x[:x.shape[0] // 2] + x[x.shape[0] // 2:]
         return x[0]
     return _seq(x.reshape(-1).unbind(0))
+
+
+def band_sum(x: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 sum of a grid [r, c] cut into n bands of r/n rows, as the
+    reference's row-sharded program sums it: grid_sum of each band, then
+    the band sums added left to right (n = 1: grid_sum)."""
+    return _seq([grid_sum(b) for b in x.chunk(n)])
 
 
 def cumsum0(x: torch.Tensor) -> torch.Tensor:

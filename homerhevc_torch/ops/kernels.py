@@ -176,11 +176,13 @@ def _gather_launch(planes, ri, by, bx, size, key):
     if n == 0:
         return out
     lib = _lib("gather_windows")
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    rc = lib.gather_windows_launch(
-        planes.data_ptr(), ri.data_ptr() if ri is not None else None,
-        by.data_ptr(), bx.data_ptr(), out.data_ptr(), n, r, hp, wp, size,
-        stream)
+    # the launch goes to the tensors' device, whichever is current
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        rc = lib.gather_windows_launch(
+            planes.data_ptr(), ri.data_ptr() if ri is not None else None,
+            by.data_ptr(), bx.data_ptr(), out.data_ptr(), n, r, hp, wp,
+            size, stream)
     _raise_on(rc, key)
     _counts[key] += 1
     return out
@@ -286,9 +288,10 @@ def slab_search(cur: torch.Tensor, slab: torch.Tensor, bs: int, ry: int,
     out = torch.empty((h // bs, w // bs), dtype=torch.int32,
                       device=cur.device)
     lib = _lib("slab_search")
-    stream = torch.cuda.current_stream(cur.device).cuda_stream
-    rc = lib.slab_search_launch(cur.data_ptr(), slab.data_ptr(),
-                                out.data_ptr(), h, w, bs, ry, rx, stream)
+    with torch.cuda.device(cur.device):
+        stream = torch.cuda.current_stream(cur.device).cuda_stream
+        rc = lib.slab_search_launch(cur.data_ptr(), slab.data_ptr(),
+                                    out.data_ptr(), h, w, bs, ry, rx, stream)
     _raise_on(rc, "slab_search")
     _counts["slab_search"] += 1
     return out

@@ -176,9 +176,12 @@ def field_median(mv_grid: torch.Tensor) -> torch.Tensor:
 
 def motion_estimate(cur: torch.Tensor, ref: torch.Tensor, sqrt_lam,
                     block: int = 16, precision: int = 2, subpel_r: int = 2,
-                    row0: int = 0):
+                    row0: int = 0, median_fn=None):
     """Full ME pipeline, priced with sqrt(lambda) (the encoder's use; the
-    reference's unpriced variant is not ported).  cur/ref int32 [H, W].
+    reference's unpriced variant is not ported).  cur/ref int32 [H, W];
+    cur may be a row band of ref starting at pixel row `row0`, and then
+    `median_fn` gives the global-motion candidate from the whole field
+    (the row-sharded path passes one that gathers the bands' fields).
     Returns (mv_q [bh, bw, 2], cost [bh, bw] float32, pred [n, B, B])."""
     h, w = cur.shape
     bh, bw = h // block, w // block
@@ -208,7 +211,7 @@ def motion_estimate(cur: torch.Tensor, ref: torch.Tensor, sqrt_lam,
               + _offsets(r, dev)[:, None, None]).reshape(k2 * 2, n, 2)
     mv0 = mv_all[best, torch.arange(n, device=dev)]
 
-    med = field_median(mv0)
+    med = (median_fn or field_median)(mv0.reshape(bh, bw, 2))
     # one whole-plane slice at the median (start clamped into the pad,
     # as a dynamic slice clamps it)
     ys = (REF_PAD + row0 + med[0]).clamp(0, ref_pad.shape[0] - h) \

@@ -181,7 +181,10 @@ class StepProbe:
     def __exit__(self, *exc):
         intra_frame._wavefront_step, intra_frame._dense_decision = self.real
 
+    @torch.inference_mode()
     def replay(self) -> dict:
+        """Runs as the Encoder's dispatches run the step: its buffers are
+        inference tensors."""
         step = self.real[0]
         torch.cuda.synchronize()
         t0 = time.perf_counter()

@@ -13,6 +13,7 @@ from homerhevc_torch.models import intra_frame as tintra
 from homerhevc_torch.utils.synthetic import synthetic_video
 from homerhevc_tpu import api as japi
 from homerhevc_tpu import config as jconfig
+from tests import jax_cache
 from tools import de265
 
 torch.set_num_threads(1)
@@ -70,8 +71,9 @@ def video():
 
 
 @pytest.fixture(scope="module")
-def jax_run(video):
-    return _run(japi.Encoder(jconfig.EncoderConfig(**ALL_INTRA)), video)
+def jax_run(video, tmp_path_factory):
+    return jax_cache.once(tmp_path_factory, "all_intra", lambda d: _run(
+        japi.Encoder(jconfig.EncoderConfig(**ALL_INTRA)), video))
 
 
 def test_all_intra_tiles_scaling_match_jax_and_decode(video, jax_run):

@@ -29,6 +29,7 @@ from homerhevc_torch.models import intra_frame as tintra
 from homerhevc_torch.utils.synthetic import synthetic_video
 from homerhevc_tpu import cli as jcli
 from homerhevc_tpu.ops import pallas_kernels
+from tests import jax_cache
 from tools import de265
 
 torch.set_num_threads(1)
@@ -107,8 +108,9 @@ def _torch_run(yuv, flags, sync):
 
 
 @pytest.fixture(scope="module")
-def k1_jax(yuv):
-    return _jax_run(yuv, K1, True)
+def k1_jax(yuv, tmp_path_factory):
+    return jax_cache.once(tmp_path_factory, "cli_k1",
+                          lambda d: _jax_run(yuv, K1, True))
 
 
 @pytest.fixture(scope="module")
@@ -117,8 +119,9 @@ def k1_torch(yuv):
 
 
 @pytest.fixture(scope="module")
-def k2_jax(yuv):
-    return _jax_run(yuv, K2, False)
+def k2_jax(yuv, tmp_path_factory):
+    return jax_cache.once(tmp_path_factory, "cli_k2",
+                          lambda d: _jax_run(yuv, K2, False))
 
 
 @pytest.fixture(scope="module")
@@ -175,8 +178,10 @@ def test_k2_async_path_matches_jax_cli_and_decodes(k2_jax, k2_torch):
 
 
 def test_cli_exits_and_errors(tmp_path, video):
-    """-h, no arguments, an unknown option, missing -i/-o, -num_chips 2,
-    a file shorter than -n_frames (rd=ULTRAFAST, 64x64 crop), main()
+    """-h, no arguments, an unknown option, missing -i/-o, -num_chips 2
+    without a process group (one device: the -num_chips 1 bytes, as the
+    JAX app with fewer devices), a file shorter than -n_frames
+    (rd=ULTRAFAST, 64x64 crop), main()
     without a device on a machine without CUDA, and `python -m
     homerhevc_torch -h` importing neither jax nor homerhevc_tpu."""
     for argv, code, text in (
@@ -200,16 +205,16 @@ def test_cli_exits_and_errors(tmp_path, video):
                 f.write(np.ascontiguousarray(p).tobytes())
     base = ["-i", str(yuv), "-o", str(tmp_path / "o.265"),
             "-widthxheight", "64x64", "-rd", "2", "-n_frames", "5"]
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        assert tcli.main(base + ["-num_chips", "2"], device="cpu") != 0
-    assert "not ported yet: num_chips/num_hosts > 1" in err.getvalue()
-    assert not (tmp_path / "o.265").exists()
+    two = [str(tmp_path / "o2.265") if a.endswith("o.265") else a
+           for a in base] + ["-num_chips", "2"]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         assert tcli.main(base, device="cpu") == 0
+        assert tcli.main(two, device="cpu") == 0
     assert out.getvalue().startswith("3 frames in ")
     assert len(de265.decode((tmp_path / "o.265").read_bytes())) == 3
+    assert (tmp_path / "o2.265").read_bytes() == \
+        (tmp_path / "o.265").read_bytes()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tcli.main(base)

@@ -3,7 +3,8 @@ configuration (IPPP, rd=ULTRAFAST, fixed QP, one reference): 176x144,
 1 I + 4 P frames through encode_async/flush.  The Annex-B streams are
 byte-identical, the reconstructions equal, and libde265 decodes the
 stream to them.  Also: the checkpoint hand-over from the JAX encoder to
-the torch one, the port's import isolation, and its refusals."""
+the torch one, the port's import isolation, and num_chips/num_hosts
+without a process group."""
 import ast
 import os
 import pathlib
@@ -19,6 +20,7 @@ from homerhevc_torch.config import EncoderConfig, RDMode
 from homerhevc_torch.utils.synthetic import synthetic_video
 from homerhevc_tpu import api as japi
 from homerhevc_tpu import config as jconfig
+from tests import jax_cache
 from tools import de265
 
 torch.set_num_threads(1)
@@ -52,10 +54,12 @@ def video():
 
 @pytest.fixture(scope="module")
 def jax_run(video, tmp_path_factory):
-    ckpt = tmp_path_factory.mktemp("jax") / "after_i.npz"
-    cfg = jconfig.EncoderConfig(rd_mode=jconfig.RDMode.RD_ULTRAFAST,
-                                **SLICE)
-    return _run(japi.Encoder(cfg), video, ckpt) + (ckpt,)
+    def run(d):
+        cfg = jconfig.EncoderConfig(rd_mode=jconfig.RDMode.RD_ULTRAFAST,
+                                    **SLICE)
+        return _run(japi.Encoder(cfg), video, d / "after_i.npz") \
+            + (d / "after_i.npz",)
+    return jax_cache.once(tmp_path_factory, "encoder", run)
 
 
 @pytest.fixture(scope="module")
@@ -156,9 +160,15 @@ def test_encoder_runs_on_cuda_unless_told(monkeypatch):
     assert tapi.Encoder(cfg, device="cpu").device.type == "cpu"
 
 
-def test_configs_outside_the_port_raise():
+def test_configs_outside_the_port_raise(video, torch_run, tmp_path):
+    """num_chips and num_hosts above 1 are accepted, as the JAX Encoder
+    accepts them: without a process group num_chips=2 runs on one device
+    (the JAX Encoder with fewer devices), and num_hosts is not read; both
+    give the num_chips=1 stream."""
     for kw in [dict(num_chips=2), dict(num_hosts=2)]:
         args = dict(SLICE, rd_mode=RDMode.RD_ULTRAFAST)
         args.update(kw)
-        with pytest.raises(NotImplementedError):
-            tapi.Encoder(EncoderConfig(**args), device="cpu")
+        enc = tapi.Encoder(EncoderConfig(**args), device="cpu")
+        assert (enc.n_bands, enc.n_frame_shards) == (1, 1)
+        nalus = _run(enc, video, tmp_path / "ckpt.npz")[0]
+        assert nalus == torch_run[0], kw

@@ -16,6 +16,7 @@ from homerhevc_torch.entropy import binding
 from homerhevc_torch.utils.synthetic import synthetic_video
 from homerhevc_tpu import api as japi
 from homerhevc_tpu import config as jconfig
+from tests import jax_cache
 from tools import de265
 
 torch.set_num_threads(1)
@@ -37,8 +38,9 @@ def _encode(enc, frames):
 
 
 @pytest.fixture(scope="module")
-def jax_run(video):
-    return _encode(japi.Encoder(jconfig.EncoderConfig(**SLICE)), video)
+def jax_run(video, tmp_path_factory):
+    return jax_cache.once(tmp_path_factory, "fast_encoder", lambda d: _encode(
+        japi.Encoder(jconfig.EncoderConfig(**SLICE)), video))
 
 
 @pytest.fixture(scope="module")

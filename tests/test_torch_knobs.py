@@ -21,6 +21,7 @@ from homerhevc_torch.utils.synthetic import synthetic_video
 from homerhevc_tpu import api as japi
 from homerhevc_tpu import config as jconfig
 from homerhevc_tpu.ops import pallas_kernels
+from tests import jax_cache
 from tools import de265
 
 torch.set_num_threads(1)
@@ -49,11 +50,13 @@ def _encode(enc, cfg, frames):
 
 
 @pytest.fixture(scope="module")
-def jax_run(video):
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pallas_kernels, "_GATHER_CHUNK", 8)
-        cfg = jconfig.EncoderConfig(**K3)
-        return _encode(japi.Encoder(cfg), cfg, video)
+def jax_run(video, tmp_path_factory):
+    def run(d):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pallas_kernels, "_GATHER_CHUNK", 8)
+            cfg = jconfig.EncoderConfig(**K3)
+            return _encode(japi.Encoder(cfg), cfg, video)
+    return jax_cache.once(tmp_path_factory, "knobs", run)
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from homerhevc_tpu import api as japi
 from homerhevc_tpu import config as jconfig
 from homerhevc_tpu import tables as jtables
 from homerhevc_tpu.models import inter_frame as jinter
+from tests import jax_cache
 from tools import de265
 
 torch.set_num_threads(1)
@@ -237,12 +238,28 @@ def cbr_frames():
     return synthetic_video(CBR_N, H, W, plants=4, diverge=32, scene_cut=CUT)
 
 
+def _other_frames():
+    return synthetic_video(5, H, W, plants=4, diverge=32)
+
+
 @pytest.fixture(scope="module")
-def jax_cbr(cbr_frames, tmp_path_factory):
-    ckpt = tmp_path_factory.mktemp("cbr") / "after_chunk1.npz"
-    res = _jax_drive(CBR, cbr_frames, ckpt=ckpt)
-    res["ckpt"] = ckpt
-    return res
+def jax_runs(cbr_frames, tmp_path_factory):
+    """The JAX Encoder's runs of this module, in one process so that they
+    share its compiled programs: CBR (with its checkpoint after chunk 1)
+    and each of OTHERS."""
+    def run(d):
+        res = {"CBR": _jax_drive(CBR, cbr_frames,
+                                 ckpt=d / "after_chunk1.npz")}
+        res["CBR"]["ckpt"] = d / "after_chunk1.npz"
+        for name, kw in OTHERS.items():
+            res[name] = _jax_drive(kw, _other_frames())
+        return res
+    return jax_cache.once(tmp_path_factory, "rate_control", run)
+
+
+@pytest.fixture(scope="module")
+def jax_cbr(jax_runs):
+    return jax_runs["CBR"]
 
 
 def test_cbr_stream_matches_jax_decodes_and_resumes(cbr_frames, jax_cbr):
@@ -268,10 +285,10 @@ def test_cbr_stream_matches_jax_decodes_and_resumes(cbr_frames, jax_cbr):
         np.testing.assert_array_equal(a, b)
 
 
-def test_vbr_and_adaptive_qp_match_jax_and_decode():
-    frames = synthetic_video(5, H, W, plants=4, diverge=32)
+def test_vbr_and_adaptive_qp_match_jax_and_decode(jax_runs):
+    frames = _other_frames()
     for name, kw in OTHERS.items():
-        j = _jax_drive(kw, frames)
+        j = jax_runs[name]
         t = _torch_drive(kw, frames)
         assert _check_stream(t, j) == [], name
         assert t["idr"] == [True, False, False, False, False], name
