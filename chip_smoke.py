@@ -21,7 +21,10 @@ Phases (any failure raises and exits non-zero):
      cu_qp_delta), under VBR with WPP substreams (1 I + 4 P), all-intra
      with a 2x2 tile grid and the default scaling lists (six frames in
      chunks of four, the second padded), IPPP with the default
-     scaling lists (1 I + 4 P), and the IPPP knobs of the console app
+     scaling lists (1 I + 4 P), rd=FAST with the intra fallback's serial
+     pass of 16 steps (1 I + 4 P with patches of new content and a strip
+     where the pan enters, through SerialEncoder; every P frame must
+     commit at least 2 blocks in it), and the IPPP knobs of the console app
      through homerhevc_torch.cli.main: K1 on its synchronous path
      (-o-raw, -stats; intra_period 0, performance_mode FULL, half-pel
      ME, max_pred_depth 3, max_intra_tr_depth 0, no sign hiding, a
@@ -90,24 +93,38 @@ Phases (any failure raises and exits non-zero):
      two frame shards must give phase 8's bytes, with no kernel
      launched; (c) NCCL with one rank per card runs (a) again where the
      machine has two cards, and otherwise a line says it did not run
-     and why.
+     and why;
+ 11. the intra fallback's serial pass: 8 P frames at 1280x720 rd=FAST
+     with fallback_serial=32 (SerialEncoder, the GOP kept) from phase 5's
+     checkpoint after its I frame, on phase 5's video plus 8 patches of
+     2 x 3 blocks of new flat content and a 32-pixel strip of new content
+     along the right edge: every kernel launched at every call site, the
+     serial steps' window reads included (one luma and two chroma
+     gathers of one window per step), each equal to its plain version on
+     one P frame's recorded inputs; the first P frame's bytes equal to
+     the CPU's from the same checkpoint (a stage-A child, `chip_smoke.py
+     --serial-cpu DIR`); prints the serial commits per frame, P fps with
+     and without the pass (two encoders from the same state, chunk by
+     chunk in turns) and the device operations per P frame of each.
 The work runs in two stages.  Stage A runs at once what no number of
 this script times: phase 3's cases (cuda and cpu, two child processes
-each), phase 9(a)'s console app and the I frames of phases 5 and 7
+each), phase 9(a)'s console app, the I frames of phases 5 and 7
 (children that save the encoder's state after them, `chip_smoke.py
---i-frame LABEL DIR`), while this process codes phase 6's I frame (it
+--i-frame LABEL DIR`) and phase 11's CPU frame, while this process codes
+phase 6's I frame (it
 stays in flight, as in a continuous run: under CBR a flush after the I
 frame would change the P frames' QPs).  These are launch-bound and leave
 the card idle most of the time, so the jobs share it.  Stage B then
 runs, alone, everything that is timed: phase 4, the P frames of phases
-5-7 (5 and 7 from their checkpoints), phases 8, 9(b) and 10 and the
-kernel timings.
+5-7 (5 and 7 from their checkpoints), phases 8, 9(b), 10 and 11 and
+the kernel timings.
 The line before the last two is {"kernels": [...]}: per kernel, on one
 phase-7 P frame's inputs, its launches over the phase, error, time
 (median and spread of 5 runs of 50), the plain version's and a PyTorch
 call's time and its bound, and the same for phase 5 (`rd_fast_path`),
-phase 9(b) (`cli_path`) and phase 10(a) on the lower band's rank
-(`band_path`, launches over its 8 band P frames);
+phase 9(b) (`cli_path`), phase 10(a) on the lower band's rank
+(`band_path`, launches over its 8 band P frames) and phase 11
+(`serial_path`);
 then the card's name and power limit; the last line of stdout is
 {"ok": true, "device": {...}}.
 """
@@ -144,6 +161,7 @@ from homerhevc_torch.models import (                         # noqa: E402
 from homerhevc_torch.ops import kernels                       # noqa: E402
 from homerhevc_torch.parallel import multihost                # noqa: E402
 from homerhevc_torch.profile_main import StepProbe            # noqa: E402
+from homerhevc_torch.profile_main import _busy_us                # noqa: E402
 from homerhevc_torch.utils.synthetic import synthetic_video   # noqa: E402
 
 DEV = torch.device("cuda")
@@ -188,6 +206,7 @@ def same(got: torch.Tensor, want: torch.Tensor, what: str) -> int:
 
 
 SLEEP_CYCLES_PER_S = 2.0e9     # >= the H100's top SM clock (1.98 GHz)
+LAUNCH_QUEUE = 900             # kernels queued ahead of the device, at most
 
 
 def time_ms(fn, reps: int, repeats: int = 5) -> tuple:
@@ -226,7 +245,7 @@ def phase_build():
 
 
 # ---------------------------------------------------------------- phase 2
-def main_path_calls(cfg, bands: int = 1):
+def main_path_calls(cfg, bands: int = 1, serial: int = 0):
     """The shapes of the kernel calls one P frame makes at this config:
     name -> list of (n, size, plane shape) or (h, w, bs, ry, rx).  With
     two references ME runs on each, and every luma MC and split8 window
@@ -236,7 +255,9 @@ def main_path_calls(cfg, bands: int = 1):
     subpel offset lies in the one window of block + 9 per block.  With
     `bands` row bands, one rank's calls: its band's blocks against the
     whole reference planes, and the intra fallback's on the whole frame
-    (it runs replicated)."""
+    (it runs replicated).  With the intra fallback's serial pass of
+    `serial` steps, each step reads one luma window and one per chroma
+    plane."""
     h, w = cfg.padded_height, cfg.padded_width
     hb = h // bands
     n = (hb // 16) * (w // 16)
@@ -262,6 +283,10 @@ def main_path_calls(cfg, bands: int = 1):
             calls["gather_windows"] += (
                 [(kf, 33, (1 + h + 16, 1 + w + 16))] * 2    # fallback ADI
                 + [(kf, 17, (1 + h // 2 + 8, 1 + w // 2 + 8))] * 4)
+            cap = min(serial, (h // 16) * (w // 16))
+            calls["gather_windows"] += (
+                [(1, 33, (1 + h + 16, 1 + w + 16))] * cap
+                + [(1, 17, (1 + h // 2 + 8, 1 + w // 2 + 8))] * 2 * cap)
         calls[mc_name] += [
             (4 * k, 14, mc_full), (4 * k, 15, mc_full),  # split8 refine, MC
             ((hb // 32) * (w // 32), 39, mc_full),       # quadtree majority
@@ -358,7 +383,8 @@ def phase_compare(cfgs):
     rng = np.random.default_rng(0)
     calls = {}
     for cfg in cfgs:
-        for name, v in main_path_calls(cfg).items():
+        cfg, serial = cfg if isinstance(cfg, tuple) else (cfg, 0)
+        for name, v in main_path_calls(cfg, serial=serial).items():
             calls.setdefault(name, [])
             calls[name] += [c for c in v if c not in calls[name]]
     for name, n, size, shape in gather_cases(calls):
@@ -389,6 +415,36 @@ def phase_compare(cfgs):
 
 
 # ---------------------------------------------------------------- phase 3
+class SerialEncoder(Encoder):
+    """Encoder whose P frames run the intra fallback's serial pass of
+    `serial` steps (no knob of the encoder turns it on)."""
+
+    def __init__(self, cfg, serial: int, **kw):
+        super().__init__(cfg, **kw)
+        self.serial = serial
+
+    def _p_knobs(self) -> dict:
+        return dict(super()._p_knobs(), fallback_serial=self.serial)
+
+
+@contextlib.contextmanager
+def serial_commits():
+    """Collect, per serial luma pass run inside, the count of blocks it
+    committed (a device tensor, read after the block)."""
+    counts = []
+    real = inter_frame._serial_luma
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        counts.append(out[1][1].sum())
+        return out
+    inter_frame._serial_luma = spy
+    try:
+        yield counts
+    finally:
+        inter_frame._serial_luma = real
+
+
 def encode_all(enc, frames):
     out = []
     for f in frames:
@@ -487,18 +543,24 @@ def same_recons(a, b, what: str):
                 f"{what}: cuda/cpu reconstructions differ at frame {k}"
 
 
-def encoder_case(cfg, frames, sync):
+def encoder_case(cfg, frames, sync, serial: int = 0):
     """A phase-3 case through Encoder: frames through encode() (`sync`:
     each frame's scene check lands before the next frame, so a cut
-    restarts the GOP) or encode_async/flush."""
+    restarts the GOP) or encode_async/flush; with `serial`, through
+    SerialEncoder (the blocks each P frame's serial pass committed)."""
     def run(dev):
-        enc = Encoder(cfg, device=dev)
-        out = ([enc.encode(*f) for f in frames] if sync
-               else encode_all(enc, frames))
-        return dict(
+        enc = (SerialEncoder(cfg, serial, device=dev) if serial
+               else Encoder(cfg, device=dev))
+        with serial_commits() as commits:
+            out = ([enc.encode(*f) for f in frames] if sync
+                   else encode_all(enc, frames))
+        res = dict(
             bytes=[f.nalus for f in out], idr=[f._is_idr for f in out],
             qps=[f._qp for f in out],
             recon=[[r.cpu().numpy() for r in enc._ref + (enc._ref2 or ())]])
+        if serial:
+            res["serial"] = [int(c) for c in commits]
+        return res
     return run
 
 
@@ -568,6 +630,13 @@ def parity_cases() -> list:
         if cfg.scaling_lists:
             name += "+scaling-lists"
         cases.append((name, encoder_case(cfg, frames, sync)))
+    # rd=FAST with the serial pass on patches of new content and a strip
+    # where the pan enters (the GOP kept: the content makes half the
+    # blocks prefer intra)
+    cases.append(("RD_FAST+serial16", encoder_case(
+        EncoderConfig(scene_change_reinit=False, **small),
+        synthetic_video(5, 144, 176, plants=4, patches=2, strip=16), False,
+        serial=16)))
     cases += [("K1 through the console app", cli_knob_case(K1, True)),
               ("K2 through the console app", cli_knob_case(K2, False)),
               (f"K3 with control() at frame {CONTROL_AT}", control_case)]
@@ -666,6 +735,9 @@ def phase_parity(d, ends):
         if name == "CBR":
             assert len(set(g["qps"][1:])) >= 2, \
                 f"CBR kept one P-frame QP: {g['qps']}"
+        if name == "RD_FAST+serial16":
+            assert not any(g["idr"][1:]) and min(g["serial"]) >= 2, \
+                (g["idr"], g["serial"])
         if name.startswith("K3"):
             # control() restarts with an IDR; the scene cut at frame 4
             # does not (no intra fallback, no reinit)
@@ -673,6 +745,8 @@ def phase_parity(d, ends):
         log(f"[parity] 176x144 {name}"
             + (f" {len(g['idr'])} frames (IDR at {idr}, QPs {g['qps']})"
                if "idr" in g else "")
+            + (f", serial commits per P frame {g['serial']}"
+               if "serial" in g else "")
             + f": cuda == cpu ({sum(len(x) for x in g['bytes'])} bytes"
             + (f", {len(g['stats'])} stats lines" if g.get("stats") else "")
             + ")")
@@ -718,14 +792,14 @@ def tool_counts(rec) -> dict:
                 split8=int((rec.cu_depth == 3).sum()) // 16)
 
 
-def check_shapes(per_frame, cfg, bands: int = 1):
+def check_shapes(per_frame, cfg, bands: int = 1, serial: int = 0):
     """One P frame's recorded kernel calls must be main_path_calls."""
     shapes = {name: sorted(tuple(a[0].shape) + a[2:]
                            if name == "slab_search" else
                            (a[-2].numel(), a[-1], tuple(a[0].shape))
                            for a in v) for name, v in per_frame.items()}
     assert shapes == {name: sorted(v) for name, v in
-                      main_path_calls(cfg, bands).items()}, shapes
+                      main_path_calls(cfg, bands, serial).items()}, shapes
 
 
 @contextlib.contextmanager
@@ -767,7 +841,7 @@ def drive_i(cfg, frames, ckpt=None) -> dict:
     return run
 
 
-def drive(cfg, frames, label, run=None, i_note=""):
+def drive(cfg, frames, label, run=None, i_note="", serial: int = 0):
     """One path: frames[0] as the I frame (or `run`, drive_i's result for
     it), then the P frames in chunks of cfg.frames_per_launch through
     encode_async/flush.  The launch counts are zeroed just before the P
@@ -800,7 +874,7 @@ def drive(cfg, frames, label, run=None, i_note=""):
         assert v and len(v) % k == 0, (name, len(v))
         per_frame[name] = v[:len(v) // k]
     # phase 2 checked the edge cases at these shapes
-    check_shapes(per_frame, cfg)
+    check_shapes(per_frame, cfg, serial=serial)
     for name in KERNELS:
         assert counts[name] > 0, \
             f"kernel {name} was not launched on the {label} path"
@@ -862,12 +936,12 @@ def i_frame(label, d):
         pickle.dump({k: run[k] for k in ("out", "recs", "i_s")}, f)
 
 
-def resumed(label, d) -> dict:
-    """i_frame's run of path `label`, its encoder restored from the
-    checkpoint, for drive."""
+def resumed(label, d, enc=None) -> dict:
+    """i_frame's run of path `label`, its encoder (or `enc`) restored from
+    the checkpoint, for drive."""
     with open(os.path.join(d, f"{label}_i.pkl"), "rb") as f:
         run = pickle.load(f)
-    run["enc"] = Encoder(path_cfg(label))
+    run["enc"] = enc or Encoder(path_cfg(label))
     run["enc"].load_checkpoint(os.path.join(d, f"{label}_after_i.npz"))
     return run
 
@@ -1242,6 +1316,119 @@ def phase_multi_device(ckpt, p_nalus, ai_nalus, n_p=8):
     return res[1]["a"]["counts"], per_rank[1]
 
 
+# -------------------------------------------------------------- phase 11
+SERIAL = 32              # phase 11's serial-pass steps per P frame
+
+
+def serial_cfg() -> EncoderConfig:
+    """Phase 5's configuration with its GOP kept (the patches and the
+    strip make about half the blocks prefer intra, which would restart
+    it)."""
+    return dataclasses.replace(path_cfg("main"), scene_change_reinit=False)
+
+
+def serial_video(n_p=8) -> list:
+    """Phase 5's video plus, from frame 1 on, 8 patches of 2 x 3 blocks
+    of new flat content and a 32-pixel strip of new content along the
+    right edge, where the pan enters (frame 0, the I frame phase 5
+    checkpoints, is phase 5's)."""
+    return synthetic_video(1 + n_p, 720, 1280, plants=64, diverge=128,
+                           quads=64, patches=8, strip=32)
+
+
+def serial_cpu(d):
+    """Phase 11's first P frame on the CPU (a stage-A child, `chip_smoke.py
+    --serial-cpu DIR`): once phase 5's I-frame child has saved its state
+    in DIR, that state through SerialEncoder on cpu.  The frame's Annex-B
+    bytes and serial commits go to DIR/serial_cpu.pkl."""
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(d, "main_i.pkl")):
+        if time.perf_counter() - t0 > STAGE_A_LIMIT_S:
+            raise TimeoutError("phase 5's I frame did not end")
+        time.sleep(1.0)
+    enc = SerialEncoder(serial_cfg(), SERIAL, device="cpu")
+    enc.load_checkpoint(os.path.join(d, "main_after_i.npz"))
+    with serial_commits() as commits:
+        out = enc.encode_async(*serial_video()[1]) + enc.flush()
+    with open(os.path.join(d, "serial_cpu.pkl"), "wb") as f:
+        pickle.dump(dict(nalus=out[0].nalus, serial=int(commits[0])), f)
+
+
+def phase_serial(d, n_p=8):
+    """Phase 11: the intra fallback's serial pass (SERIAL steps) at 720p
+    rd=FAST on serial_video, the P frames from phase 5's state after its
+    I frame.  Every kernel launched at every call site, the serial
+    steps' window reads included, each equal to its plain version on one
+    P frame's recorded inputs; the first P frame's bytes equal to the
+    CPU's (serial_cpu).  Then the pass's cost: two encoders from the same
+    state, with and without the pass, code the P frames chunk by chunk
+    in turns (P fps each), and one chunk of each under torch.profiler
+    (device operations per P frame).  Returns the launch counts and one
+    P frame's calls."""
+    t_phase = time.perf_counter()
+    cfg = serial_cfg()
+    frames = serial_video(n_p)
+    ckpt = os.path.join(d, "main_after_i.npz")
+    with serial_commits() as commits:
+        counts, per_frame, recs, out, _, p_fps = drive(
+            cfg, frames, "serial", resumed("main", d,
+                                           SerialEncoder(cfg, SERIAL)),
+            RESUMED, serial=SERIAL)
+    commits = [int(c) for c in commits]
+    assert len(commits) == n_p and min(commits) >= 2, commits
+    err = hold_against_plain(per_frame, "serial-pass inputs")
+    with open(os.path.join(d, "serial_cpu.pkl"), "rb") as f:
+        cpu = pickle.load(f)
+    assert out[1].nalus == cpu["nalus"] and commits[0] == cpu["serial"], \
+        "phase 11: the first P frame differs between cuda and cpu"
+    k = cfg.frames_per_launch
+    encs = dict(serial=SerialEncoder(cfg, SERIAL), plain=Encoder(cfg))
+    secs = dict.fromkeys(encs, 0.0)
+    for e in encs.values():
+        e.load_checkpoint(ckpt)
+    for c in range(n_p // k):
+        for name, e in encs.items():
+            t0 = time.perf_counter()
+            encode_all(e, frames[1 + c * k:1 + (c + 1) * k])
+            torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t0
+    prof = {}
+    for name, e in encs.items():
+        e.load_checkpoint(ckpt)
+        prof[name] = device_ops(lambda e=e: encode_all(e, frames[1:1 + k]),
+                                k)
+    log(f"[serial] 1280x720 rd=FAST fallback_serial={SERIAL} 1I+{n_p}P: "
+        f"serial commits per P frame {commits}; first P frame == cpu "
+        f"({len(cpu['nalus'])} bytes); bits {[f.bits for f in out]}; "
+        f"kernels equal to their plain versions (max abs err {err}); "
+        f"launches {counts}; P fps {p_fps:.3f} (drive's timed chunk)")
+    for name in encs:
+        log(f"[serial] {name}: P fps {n_p / secs[name]:.3f} ({n_p} P "
+            f"frames in turns, {secs[name]:.3f}s); per P frame under the "
+            f"profiler: {prof[name]['device_ops']:.1f} device operations, "
+            f"device busy {prof[name]['device_busy_share']:.4f}, wall "
+            f"{prof[name]['wall_ms']:.1f} ms")
+    log(f"[serial] phase 11 {time.perf_counter() - t_phase:.1f}s")
+    return counts, per_frame
+
+
+def device_ops(fn, n) -> dict:
+    """fn under torch.profiler (device activity only): its device
+    operations per frame over its n frames, the device's busy share and
+    the wall ms per frame."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert dev, "the profiler saw no device operation"
+    return dict(device_ops=len(dev) / n, wall_ms=wall_s * 1e3 / n,
+                device_busy_share=_busy_us(dev) / (wall_s * 1e6))
+
+
 def assert_zero(code):
     assert code == 0, f"cli.main returned {code}"
 
@@ -1357,9 +1544,13 @@ def kernel_report(counts, per_frame):
 
         def frame(fs):
             return lambda: [fn() for fn in fs]
-        ms, spread = time_ms(frame(fns), 50)
+        # past ~1,000 queued launches the host waits for the queue to
+        # drain, and a run's time becomes the host's launch rate: keep a
+        # run of a frame's calls below that
+        reps = max(1, min(50, LAUNCH_QUEUE // len(fns)))
+        ms, spread = time_ms(frame(fns), reps)
         plain_ms, _ = time_ms(frame(plains), 5)
-        library_ms = time_ms(frame(libs), 50)[0] if libs else None
+        library_ms = time_ms(frame(libs), reps)[0] if libs else None
         rows.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=counts[name],
@@ -1387,6 +1578,8 @@ def stage_a(work, jobs) -> dict:
         start_job(jobs, f"{label}_i",
                   [sys.executable, os.path.abspath(__file__), "--i-frame",
                    label, work], work)
+    start_job(jobs, "serial_cpu", [sys.executable, os.path.abspath(__file__),
+                                   "--serial-cpu", work], work)
     ends = {}
     watch = threading.Thread(target=watch_jobs, args=(jobs, t0, ends),
                              daemon=True)
@@ -1413,7 +1606,8 @@ def main():
                        EncoderConfig(rd_mode=RDMode.RD_FULL, num_ref_frames=2,
                                      **size),
                        cli_cfg(small + K1), cli_cfg(small + K2),
-                       EncoderConfig(**K3), cli_cfg(CLI_UFAST)])
+                       EncoderConfig(**K3), cli_cfg(CLI_UFAST),
+                       (serial_cfg(), SERIAL)])
         a = stage_a(work, jobs)
         t_b = time.perf_counter()
         phase_parity(work, a["ends"])
@@ -1426,6 +1620,7 @@ def main():
             work, a["cbr_frames"], cbr_stream, a["ends"]["cli_a"])
         band_counts, band_calls = phase_multi_device(
             os.path.join(work, "main_after_i.npz"), p_nalus, ai_nalus)
+        serial_counts, serial_calls = phase_serial(work)
     finally:
         stop_jobs(jobs)
         shutil.rmtree(work, ignore_errors=True)
@@ -1433,14 +1628,18 @@ def main():
         f"half-pel ME through the app {cli_nums['p_fps']:.3f}, "
         f"performance_mode UFAST (phase 4) {ufast_fps:.3f}")
     # the kernels line reports the two-reference rd=FULL path; each row
-    # also carries the rd=FAST path's, the console app's (9(b)) and the
-    # row-band path's (phase 10, the lower band's rank) numbers
+    # also carries the rd=FAST path's, the console app's (9(b)), the
+    # row-band path's (phase 10, the lower band's rank) and the serial
+    # pass's (phase 11) numbers
+    t_k = time.perf_counter()
     paths = {label: {r["name"]: r for r in kernel_report(c, calls)}
              for label, c, calls in (
                  ("rd_fast_path", fast_counts, fast_calls),
                  ("cli_path", cli_counts, cli_calls),
-                 ("band_path", band_counts, band_calls))}
+                 ("band_path", band_counts, band_calls),
+                 ("serial_path", serial_counts, serial_calls))}
     rows = kernel_report(counts, per_frame)
+    log(f"[time] kernel timings {time.perf_counter() - t_k:.1f}s")
     for r in rows:
         for label, by_name in paths.items():
             f = by_name[r["name"]]
@@ -1455,7 +1654,7 @@ def main():
                 f"{x['ms_spread'][1]:.4f}, plain {x['plain_ms']:.4f}, "
                 f"library {lib}, bound {x['bound_ms']:.5f} "
                 f"{r['bound_by']}), {x['launches']} launches")
-    log(f"[time] phases 1-10 {time.perf_counter() - t0:.1f}s (stage B "
+    log(f"[time] phases 1-11 {time.perf_counter() - t0:.1f}s (stage B "
         f"{time.perf_counter() - t_b:.1f}s)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1479,5 +1678,9 @@ if __name__ == "__main__":
         # a path's I frame, checkpointed (i_frame)
         torch.set_num_threads(2)
         i_frame(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--serial-cpu"]:
+        # phase 11's first P frame on the CPU (serial_cpu)
+        torch.set_num_threads(2)
+        serial_cpu(sys.argv[2])
     else:
         main()

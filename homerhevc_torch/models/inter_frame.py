@@ -7,8 +7,8 @@ the knobs of the reference's speed ladder (rd=FULL's P frame is
 rd=FAST's), with a slice QP per frame and an
 optional per-CTU QP map (cu_qp_delta; WPP substreams reset the
 deblocking QP chain per CTU row), flat quantization or the default
-scaling lists (scaling_lists, in every TQ call); the serial
-intra-fallback pass (fallback_serial) is not ported.
+scaling lists (scaling_lists, in every TQ call), and the intra
+fallback's serial pass (fallback_serial).
 
 QP and lambda are per 16-block tensors ([nb], built once per frame from
 the map) in every RD decision, except motion estimation, the
@@ -17,7 +17,8 @@ intra-preference count and SAO, which keep the slice QP's.
 Stage order: motion estimation (on each reference, then a per-block
 reference pick) -> merge/skip RD over {left, top, own, global, zero}
 candidates (a second round re-evaluates left/top from the
-first round's winners) -> isolated intra fallback in rounds -> the
+first round's winners) -> isolated intra fallback in rounds, then
+(fallback_serial) up to N more candidates one by one in coding order -> the
 frame's intra-preference count (scene-change restart) -> 8x8 inter
 split of divergent-motion 16x16 blocks -> 16/32/64 quadtree
 consolidation with TU-size RD (non-uniform groups at their majority MV)
@@ -740,17 +741,109 @@ def _neigh8(g: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _dc_candidates(plane, cur_b, inter_sad, is_intra, inv, s, bh, bw, h,
+                   w):
+    """The fallback's DC proxy on a reconstruction plane [h, w]: (blocks
+    whose DC-prediction SAD, from the first-ring sums of the edge-padded
+    plane, beats 0.75 x the inter SAD, not intra yet and not invisible
+    [nb] bool; their DC SAD [nb] int32)."""
+    nb = bh * bw
+    top = torch.cat([plane[:1], plane[s - 1:h - 1:s]], 0)       # [bh, w]
+    left = torch.cat([plane[:, :1], plane[:, s - 1:w - 1:s]], 1)
+    top_sum = top.reshape(bh, bw, s).sum(-1, dtype=torch.int32)
+    left_sum = left.reshape(bh, s, bw).sum(1, dtype=torch.int32)
+    dc = torch.div(top_sum + left_sum + s, 2 * s,
+                   rounding_mode="floor").reshape(nb)
+    dc_sad = (cur_b - dc[:, None, None]).abs().sum((-1, -2),
+                                                   dtype=torch.int32)
+    cand = (dc_sad.to(torch.float32)
+            < 0.75 * inter_sad.to(torch.float32)) & (is_intra == 0)
+    if inv is not None:
+        cand = cand & ~inv
+    return cand, dc_sad
+
+
+@functools.lru_cache(maxsize=None)
+def _coding_order(bw: int, bh: int, bpc: int, device) -> torch.Tensor:
+    """Coding index of each block [nb] (CTU raster, z-order inside)."""
+    return torch.as_tensor(schedule.coding_order(bw, bh, bpc).reshape(-1),
+                           dtype=torch.int32, device=device)
+
+
+def _put_window(buf, py, px, ok, blk):
+    """In place: buf[1+py.., 1+px..] = blk [1, b, b] where ok [1, 1, 1],
+    the origin (py, px) [1] read on the device."""
+    r = torch.arange(blk.shape[-1], device=buf.device)
+    rows = (1 + py + r)[:, None]
+    cols = (1 + px + r)[None, :]
+    buf[rows, cols] = torch.where(ok, blk, buf[rows, cols])[0]
+
+
+def _serial_luma(cur_b, recon_y, level_y, cbf, is_intra, modes, inter_sad,
+                 qp, avail, pos_y, pos_x, s, bh, bw, h, w, sbh_scan, serial,
+                 inv, scaling):
+    """The serial pass after the rounds: contiguous candidate regions
+    (pan-entry strips, uncovered bands) leave no candidate isolated, so
+    up to `serial` remaining candidates are committed one at a time in
+    coding order (CTU raster, z-order inside; tiles not considered),
+    each from the reconstruction its predecessors left.  Every step runs
+    masked, with no host sync: a step whose candidate is not ok writes
+    nothing.  Returns the updated (recon, level, cbf, is_intra, modes)
+    and (sel, ok, mode) [cap] in coding order."""
+    nb = bh * bw
+    dev = cur_b.device
+    cap = min(serial, nb)
+    plane = _unblocks(recon_y, h, w)
+    cand, dc_sad = _dc_candidates(plane, cur_b, inter_sad, is_intra, inv,
+                                  s, bh, bw, h, w)
+    # blocks whose recon a committed block's references may have read
+    # stay inter (its 8-neighbourhood and itself)
+    ig = is_intra.reshape(bh, bw).to(torch.bool)
+    cand = cand & ~(_neigh8(ig) | ig).reshape(nb)
+    gv, sel0 = topk_stable(torch.where(cand, inter_sad - dc_sad, -1), cap)
+    ok0 = gv > 0
+    rank = torch.where(ok0, _coding_order(bw, bh, 64 // s, dev)[sel0],
+                       1 << 30)
+    perm = torch.argsort(rank, stable=True)
+    sel, ok = sel0[perm], ok0[perm]
+    buf = torch.nn.functional.pad(plane.to(torch.int32),
+                                  (1, s, 1, s)).contiguous()
+    recon_y, level_y, cbf, is_intra, modes = (
+        t.clone() for t in (recon_y, level_y, cbf, is_intra, modes))
+    for i in range(cap):
+        sl, okk = sel[i:i + 1], ok[i:i + 1]
+        adi = intra.substitute_refs(
+            _gather_adi_blocks(buf, pos_y[sl], pos_x[sl], s), avail[sl])
+        preds = intra.predict_all_modes(adi, s, True)[0]      # [35, s, s]
+        cur1 = cur_b[sl]
+        sads = (preds - cur1).abs().sum((-1, -2), dtype=torch.int32)
+        bst = torch.argmin(sads)[None]
+        pred1 = preds[bst]
+        lvl, rr = _tq(cur1 - pred1, s, qp[sl], True, sbh_scan, scaling)
+        rec = (pred1 + rr).clamp(0, 255)
+        okb = okk[:, None, None]
+        recon_y[sl] = torch.where(okb, rec.to(recon_y.dtype), recon_y[sl])
+        level_y[sl] = torch.where(okb, lvl.to(level_y.dtype), level_y[sl])
+        cbf[sl] = torch.where(okk, (lvl != 0).any(-1).any(-1), cbf[sl])
+        is_intra[sl] = torch.where(okk, 1, is_intra[sl])
+        modes[sl] = torch.where(okk, bst.to(modes.dtype), modes[sl])
+        _put_window(buf, pos_y[sl], pos_x[sl], okb, rec.to(buf.dtype))
+    return (recon_y, level_y, cbf, is_intra, modes), (sel, ok, modes[sel])
+
+
 def _intra_fallback_luma(cur_b, recon_y, level_y, cbf_y, inter_pred, qp,
                          s, bh, bw, h, w, sbh_scan, rounds, inv, geom,
-                         scaling=False):
+                         scaling=False, serial: int = 0):
     """Luma of the intra fallback: up to _FALLBACK_CAP inter CUs per round
     become intra CUs, over `rounds` batched passes.  Candidates: blocks
     whose DC-prediction SAD beats 0.75 x the inter SAD and whose
     8-neighbourhood holds no other candidate (so their references are
     final); the best by SAD gain are compacted, searched over all 35
-    modes from exact references, coded and scattered back.  Returns
-    (recon, level, cbf, is_intra [nb], modes [nb], round-0 candidate
-    count, per-round (sel, ok, mode))."""
+    modes from exact references, coded and scattered back.  With
+    `serial` > 0 the serial pass (_serial_luma) follows the rounds.
+    Returns (recon, level, cbf, is_intra [nb], modes [nb], round-0
+    candidate count, per-round (sel, ok, mode), the serial pass's (sel,
+    ok, mode) or None)."""
     nb = bh * bw
     kcap = min(_FALLBACK_CAP, nb)
     dev = cur_b.device
@@ -766,19 +859,8 @@ def _intra_fallback_luma(cur_b, recon_y, level_y, cbf_y, inter_pred, qp,
     cand_count = None
     for rnd in range(rounds):
         plane = _unblocks(recon_y, h, w)
-        # DC proxy from the first-ring sums of the edge-padded recon
-        top = torch.cat([plane[:1], plane[s - 1:h - 1:s]], 0)   # [bh, w]
-        left = torch.cat([plane[:, :1], plane[:, s - 1:w - 1:s]], 1)
-        top_sum = top.reshape(bh, bw, s).sum(-1, dtype=torch.int32)
-        left_sum = left.reshape(bh, s, bw).sum(1, dtype=torch.int32)
-        dc = torch.div(top_sum + left_sum + s, 2 * s,
-                       rounding_mode="floor").reshape(nb)
-        dc_sad = (cur_b - dc[:, None, None]).abs().sum(
-            (-1, -2), dtype=torch.int32)
-        cand = (dc_sad.to(torch.float32)
-                < 0.75 * inter_sad.to(torch.float32)) & (is_intra == 0)
-        if inv is not None:
-            cand = cand & ~inv
+        cand, dc_sad = _dc_candidates(plane, cur_b, inter_sad, is_intra, inv,
+                                      s, bh, bw, h, w)
         if rnd == 0:
             cand_count = cand.sum(dtype=torch.int32)
         cgrid = cand.reshape(bh, bw)
@@ -806,8 +888,14 @@ def _intra_fallback_luma(cur_b, recon_y, level_y, cbf_y, inter_pred, qp,
         is_intra = _put_rows(is_intra, sel, ok, torch.ones_like(sel))
         modes = _put_rows(modes, sel, ok, best)
         rounds_out.append((sel, ok, best))
+    serial_out = None
+    if serial > 0:
+        (recon_y, level_y, cbf, is_intra, modes), serial_out = _serial_luma(
+            cur_b, recon_y, level_y, cbf, is_intra, modes, inter_sad, qp,
+            avail, pos_y, pos_x, s, bh, bw, h, w, sbh_scan, serial, inv,
+            scaling)
     return (recon_y, level_y, cbf.reshape(bh, bw), is_intra, modes,
-            cand_count, rounds_out)
+            cand_count, rounds_out, serial_out)
 
 
 def _intra_fallback_chroma(rec_blocks, orig_blocks, level_c, cbf_c, sel,
@@ -833,6 +921,39 @@ def _intra_fallback_chroma(rec_blocks, orig_blocks, level_c, cbf_c, sel,
             _put_rows(level_c, sel, ok, lvl),
             _put_rows(cbf_c.reshape(-1), sel, ok,
                       (lvl != 0).any(-1).any(-1)).reshape(bh, bw))
+
+
+def _intra_fallback_chroma_serial(rec_blocks, orig_blocks, level_c, cbf_c,
+                                  serial_out, cs, bh, bw, h, w, qp_c, scan,
+                                  geom, scaling=False):
+    """Chroma (DM) of the serial pass's blocks in one plane, one at a time
+    in the luma pass's coding order, chaining the chroma reconstruction
+    (the blocks may be adjacent); after every round's chroma."""
+    sel, ok, best = serial_out
+    dev = rec_blocks.device
+    plane = _unblocks(rec_blocks, h // 2, w // 2)
+    cbuf = torch.nn.functional.pad(plane.to(torch.int32),
+                                   (1, cs, 1, cs)).contiguous()
+    avail = _fallback_avail(bw, bh, cs, geom, dev)
+    rec_blocks, level_c = rec_blocks.clone(), level_c.clone()
+    cbf = cbf_c.reshape(-1).clone()
+    for i in range(sel.shape[0]):
+        sl, okk = sel[i:i + 1], ok[i:i + 1]
+        py = torch.div(sl, bw, rounding_mode="floor") * cs
+        px = (sl % bw) * cs
+        adi = intra.substitute_refs(_gather_adi_blocks(cbuf, py, px, cs),
+                                    avail[sl])
+        pred = intra.predict_single_mode(adi, best[i:i + 1], cs, False)
+        lvl, rr = _tq(orig_blocks[sl] - pred, cs, qp_c[sl], True, scan,
+                      scaling)
+        rec = (pred + rr).clamp(0, 255)
+        okb = okk[:, None, None]
+        rec_blocks[sl] = torch.where(okb, rec.to(rec_blocks.dtype),
+                                     rec_blocks[sl])
+        level_c[sl] = torch.where(okb, lvl.to(level_c.dtype), level_c[sl])
+        cbf[sl] = torch.where(okk, (lvl != 0).any(-1).any(-1), cbf[sl])
+        _put_window(cbuf, py, px, okb, rec.to(cbuf.dtype))
+    return rec_blocks, level_c, cbf.reshape(bh, bw)
 
 
 def _maybe_scene(sad_me, cand_count, h: int, w: int, n_bands: int = 1):
@@ -1113,7 +1234,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                    inter_nxn: bool = False, true_size: bool = False,
                    wpp_substreams: bool = False, scaling_lists: bool = False,
                    ref2_y=None, ref2_u=None, ref2_v=None, has_ref2=None,
-                   group=None, n_bands: int = 1, **unsupported) -> dict:
+                   group=None, n_bands: int = 1) -> dict:
     """Encode one P frame against one or two references.  y/u/v:
     uint8/int32 CTU-padded planes; ref_*: int32 reconstructed (deblocked,
     SAO'd) reference planes of the same shapes; qp: the slice QP; qp_map:
@@ -1141,10 +1262,6 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
 
     Returns a dict of tensors (recon planes, coefficient planes, mv,
     cbf, `packed`, `packed_full`; `ref_idx` with two references)."""
-    if fallback_serial:
-        raise NotImplementedError("serial intra-fallback pass")
-    if unsupported:
-        raise NotImplementedError(f"options {sorted(unsupported)}")
     hb, w = y.shape                   # the band (the frame unless sharded)
     dev = y.device
     sharded = group is not None
@@ -1296,10 +1413,11 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
         full = bands.gather(cur_b, recon_y, level_y, cbf_y, pred_sel, sad_me)
         with record_function("p.fallback"):
             (rec_f, lvl_f, cbf_f, is_intra_f, intra_modes, cand_count,
-             fb_rounds) = _intra_fallback_luma(
+             fb_rounds, fb_serial) = _intra_fallback_luma(
                 full[0], full[1], full[2], full[3], full[4],
                 qp_t_full.reshape(-1), s, BH, bw, h, w, sbh_scan,
-                fallback_rounds, inv_full, geom_l, scaling_lists)
+                fallback_rounds, inv_full, geom_l, scaling_lists,
+                fallback_serial)
             recon_y = bands.band(rec_f)
             level_y = bands.band(lvl_f)
             cbf_y = bands.band(cbf_f)
@@ -1402,6 +1520,13 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                         rec_c[p], orig_c[p], lvl_c[p], cbf_c[p], sel, ok,
                         best, cs, bh, bw, h, w, qp_ct_full, sbh_scan_c,
                         geom_c, scaling_lists)
+            if fb_serial is not None:
+                for p in range(2):
+                    rec_c[p], lvl_c[p], cbf_c[p] = \
+                        _intra_fallback_chroma_serial(
+                            rec_c[p], orig_c[p], lvl_c[p], cbf_c[p],
+                            fb_serial, cs, bh, bw, h, w, qp_ct_full,
+                            sbh_scan_c, geom_c, scaling_lists)
     out_u = _unblocks(rec_c[0], h // 2, w // 2)
     out_v = _unblocks(rec_c[1], h // 2, w // 2)
 

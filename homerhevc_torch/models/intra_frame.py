@@ -14,7 +14,8 @@ ranks of a process group.
 
 1. Dense decision (frame by frame): luma modes at 32, 16 and
    (search_8x8 / search_nxn) 8 and 4, and the 5-candidate chroma modes,
-   from source-pixel reference samples, for every block at once; under
+   from source-pixel reference samples (or those of a decision plane,
+   dec_y), for every block at once; under
    rd_refine (rd=FULL) the SATD cost's three best modes at 32 and 16
    with their mode bits.
 2. Wavefront reconstruction over 32x32 slots (models/schedule.py plans):
@@ -154,9 +155,10 @@ def _avail_mask(seg_av: np.ndarray, s: int) -> np.ndarray:
 
 
 def _dense_best(y32: torch.Tensor, s: int, ctu: int, sqrt_lam,
-                topk: int = 1, tiles=None):
+                topk: int = 1, tiles=None, adi_plane=None):
     """Best intra mode per s x s block (SATD + MPM-aware mode bits,
-    source-pixel references, availability cut at tile boundaries).
+    source-pixel references, or those of the decision plane `adi_plane`
+    where given, availability cut at tile boundaries).
     Returns (mode [bh, bw] int64, its cost [bh, bw] float32); with
     topk > 1, the topk best modes and their mode bits, best first
     ([topk, bh, bw] each; equal costs lowest mode first, as
@@ -166,7 +168,7 @@ def _dense_best(y32: torch.Tensor, s: int, ctu: int, sqrt_lam,
     dev = y32.device
     buf = torch.zeros((1 + h + s, 1 + w + s), dtype=torch.int32,
                       device=dev)
-    buf[1:1 + h, 1:1 + w] = y32
+    buf[1:1 + h, 1:1 + w] = y32 if adi_plane is None else adi_plane
     py = torch.arange(bh, device=dev).repeat_interleave(bw) * s
     px = (torch.arange(bw, device=dev) * s).repeat(bh)
     amask, segt = _avail_dev(w, h, s, ctu, tiles, dev)
@@ -536,27 +538,34 @@ _TOPK_KEYS = ("mode32k", "mbits32k", "mode16k", "mbits16k")
 def _dense_decision(y32, u32, v32, ctu: int, sqrt_lam, sqrt_lam_c, tiles,
                     o) -> dict:
     """Pass 1 for one frame: the dense mode maps (under rd_refine also
-    the SATD cost's top K at 32 and 16, and their mode bits)."""
+    the SATD cost's top K at 32 and 16, and their mode bits).  The luma
+    references come from o.adi_y where given (SATD stays against the
+    source)."""
     d = {}
+    ady = o.adi_y
     if o.rd_refine:
         d["mode32k"], d["mbits32k"] = _dense_best(y32, 32, ctu, sqrt_lam,
-                                                  _K_REFINE, tiles)
+                                                  _K_REFINE, tiles, ady)
         d["mode16k"], d["mbits16k"] = _dense_best(y32, 16, ctu, sqrt_lam,
-                                                  _K_REFINE, tiles)
+                                                  _K_REFINE, tiles, ady)
         d["mode32"], d["mode16"] = d["mode32k"][0], d["mode16k"][0]
     else:
-        d["mode32"] = _dense_best(y32, 32, ctu, sqrt_lam, tiles=tiles)[0]
-        d["mode16"] = _dense_best(y32, 16, ctu, sqrt_lam, tiles=tiles)[0]
+        d["mode32"] = _dense_best(y32, 32, ctu, sqrt_lam, tiles=tiles,
+                                  adi_plane=ady)[0]
+        d["mode16"] = _dense_best(y32, 16, ctu, sqrt_lam, tiles=tiles,
+                                  adi_plane=ady)[0]
     d["cmode32"] = _dense_best_chroma(u32, v32, d["mode32"], 32, ctu,
                                       sqrt_lam_c, tiles)
     d["cmode16"] = _dense_best_chroma(u32, v32, d["mode16"], 16, ctu,
                                       sqrt_lam_c, tiles)
     if o.search_8x8:
-        d["mode8"] = _dense_best(y32, 8, ctu, sqrt_lam, tiles=tiles)[0]
+        d["mode8"] = _dense_best(y32, 8, ctu, sqrt_lam, tiles=tiles,
+                                 adi_plane=ady)[0]
         d["cmode8"] = _dense_best_chroma(u32, v32, d["mode8"], 8, ctu,
                                          sqrt_lam_c, tiles)
     if o.search_nxn:
-        d["mode4"] = _dense_best(y32, 4, ctu, sqrt_lam, tiles=tiles)[0]
+        d["mode4"] = _dense_best(y32, 4, ctu, sqrt_lam, tiles=tiles,
+                                 adi_plane=ady)[0]
     return d
 
 
@@ -627,6 +636,11 @@ def _wavefront_step(st, dec, y32, uv32, bufs, o):
             sp16_l.append(torch.zeros_like(c16))
             m8_l.append(m16[None].expand(4, nb))
             cbf8_l.append(c16[None].expand(4, nb))
+            # no 8x8 CU: no NxN, every 4x4 PU granule at the 16's mode
+            nxn_l.append(torch.zeros((4, nb), dtype=torch.bool,
+                                     device=c16.device))
+            pu4_l.append(m16[None, None].expand(4, 4, nb))
+            cbf4_l.append(c16[None, None].expand(4, 4, nb))
             continue
         patch8 = patch.clone()
         l8s = torch.zeros((nb, 16, 16), **i32)
@@ -750,10 +764,12 @@ def _wavefront_step(st, dec, y32, uv32, bufs, o):
 
 
 def encode_i_chunk(ys, us, vs, qp: int, ctu: int = 64,
-                   sign_hiding: bool = False, deblocking: bool = False,
-                   sao_enabled: bool = False, search_8x8: bool = False,
-                   chroma_qp_offset: int = 0, scaling_lists: bool = False,
-                   search_nxn: bool = False, tiles=None,
+                   sign_hiding: bool = False, rd_lambda_scale: float = 1.0,
+                   deblocking: bool = False, sao_enabled: bool = False,
+                   search_8x8: bool = True, chroma_qp_offset: int = 0,
+                   scaling_lists: bool = False, cu: int = None,
+                   split_8x8: bool = None, dec_y=None, dec_u=None,
+                   dec_v=None, search_nxn: bool = False, tiles=None,
                    rd_refine: bool = False, tu_split: bool = False,
                    vis_h: int = None, vis_w: int = None,
                    true_size: bool = False) -> dict:
@@ -761,10 +777,14 @@ def encode_i_chunk(ys, us, vs, qp: int, ctu: int = 64,
     [K, H/2, W/2]: uint8/int32 CTU-padded planes on the device the chunk
     is computed on; tiles: a (cols, rows) grid or None.  Every
     wavefront step reconstructs the K frames' slots as one batch.
-    Returns a dict of [K, ...] tensors (recon planes, coefficient
-    planes, decision maps, `packed`)."""
-    if (search_nxn or tu_split) and not search_8x8:
-        raise NotImplementedError("NxN / TU split without the 8x8 split")
+    split_8x8, where not None, stands for search_8x8; `cu` is accepted
+    and not read.  dec_y [H, W], shared by the K frames, replaces the
+    source as the dense pass's luma reference samples (dec_u and dec_v
+    are accepted and not read); rd_lambda_scale scales the dense pass's
+    luma sqrt(lambda).  Returns a dict of [K, ...] tensors (recon
+    planes, coefficient planes, decision maps, `packed`)."""
+    if split_8x8 is not None:
+        search_8x8 = split_8x8
     nf, h, w = ys.shape
     dev = ys.device
     if true_size and vis_w is not None:
@@ -784,11 +804,13 @@ def encode_i_chunk(ys, us, vs, qp: int, ctu: int = 64,
         qp=qp, qp_c=qp_c, lamf=lamf, lamcf=lamcf, sign_hiding=sign_hiding,
         scaling=scaling_lists, search_8x8=search_8x8, search_nxn=search_nxn,
         tu_split=tu_split, rd_refine=rd_refine,
+        adi_y=None if dec_y is None else dec_y.to(torch.int32),
         qy=torch.tensor([q[0] for q in _SUB_OFF], device=dev),
         qx=torch.tensor([q[1] for q in _SUB_OFF], device=dev))
 
     # ---- pass 1: dense decision, frame by frame
-    sqrt_lam, sqrt_lam_c = torch.sqrt(lamf), torch.sqrt(lamcf)
+    sqrt_lam = torch.sqrt(lamf) * rd_lambda_scale
+    sqrt_lam_c = torch.sqrt(lamcf)
     per = [_dense_decision(y32[f], uv32[f], uv32[nf + f], ctu, sqrt_lam,
                            sqrt_lam_c, tiles, o) for f in range(nf)]
     dec = {key: torch.stack([d[key] for d in per],
@@ -882,11 +904,23 @@ def encode_i_chunk_sharded(ys, us, vs, qp: int, *, group, **flags) -> dict:
     return dict(zip(out, parallel.gather_rows(group, *out.values())))
 
 
-def encode_frame(y, u, v, qp: int, **flags) -> dict:
+def encode_frame(y, u, v, qp: int, ctu: int = 64,
+                 sign_hiding: bool = False, rd_lambda_scale: float = 1.0,
+                 deblocking: bool = False, sao_enabled: bool = False,
+                 search_8x8: bool = True, chroma_qp_offset: int = 0,
+                 scaling_lists: bool = False, cu: int = None,
+                 split_8x8: bool = None, dec_y=None, dec_u=None, dec_v=None,
+                 search_nxn: bool = False, tiles=None,
+                 rd_refine: bool = False, tu_split: bool = False,
+                 vis_h: int = None, vis_w: int = None,
+                 true_size: bool = False) -> dict:
     """Encode one intra frame: encode_i_chunk of one frame (planes
     [H, W], chroma [H/2, W/2]; the same flags).  Returns a dict of
     tensors (recon planes, coefficient planes, decision maps,
     `packed`)."""
+    flags = dict(locals())
+    for key in ("y", "u", "v", "qp"):
+        del flags[key]
     out = encode_i_chunk(y[None], u[None], v[None], qp, **flags)
     return {key: t[0] for key, t in out.items()}
 

@@ -6,7 +6,8 @@ import numpy as np
 
 def synthetic_video(n: int, h: int, w: int, seed: int = 7,
                     plants: int = 0, diverge: int = 0, quads: int = 0,
-                    scene_cut: int = None, flicker: int = 0) -> list:
+                    scene_cut: int = None, flicker: int = 0,
+                    patches: int = 0, strip: int = 0) -> list:
     """n frames (Y, U, V) uint8: textured luma under a global pan of
     (1, 3) pixels per frame, smooth low-frequency chroma (the pattern of
     the JAX package's bench).  The options add content for the rd=FAST
@@ -28,7 +29,18 @@ def synthetic_video(n: int, h: int, w: int, seed: int = 7,
     * flicker: odd frames add a fixed noise field of amplitude +-flicker,
       moving with the pan, over the left half of the picture: there the
       frame two back (same parity) is the better reference, elsewhere
-      the previous frame (two-reference coding).
+      the previous frame (two-reference coding);
+    * patches: from frame 1 on, up to `patches` patches of 2 x 3 16x16
+      blocks of new flat content (the plants' values), each with the
+      ring of pixels above and left of it in the same value, near the
+      bottom of the picture: every block of a patch has a candidate
+      neighbour, so none is isolated (the P intra fallback's serial
+      pass);
+    * strip: from frame 1 on, the right `strip` columns (a multiple of
+      16) show new flat content of another level in every frame, with
+      the column left of them in the same value: the blocks where a pan
+      enters, mutually adjacent.
+    Plant sites next to a patch or the strip are left out.
     """
     rng = np.random.default_rng(seed)
     m = 4 * n + 8
@@ -44,6 +56,15 @@ def synthetic_video(n: int, h: int, w: int, seed: int = 7,
     # and column of blocks
     sites = [(by, bx) for by in range(1, h // 16, 4)
              for bx in range(1, w // 16, 4)][:plants]
+    # patch sites (top-left block): rows up from the bottom, a block
+    # column apart, clear of the strip
+    psites = [(by, bx) for by in range(h // 16 - 3, 0, -4)
+              for bx in range(1, w // 16 - strip // 16 - 4, 5)][:patches]
+    sx = w - strip                       # the strip's first column
+    sites = [(by, bx) for by, bx in sites
+             if not any(py - 1 <= by <= py + 2 and px - 1 <= bx <= px + 3
+                        for py, px in psites)
+             and not (strip and 16 * bx + 16 >= sx - 16)]
     q0y, q0x = (h - quads) // 16 * 16, (w - quads) // 16 * 16
     levels = rng.integers(0, 6, (quads // 8, quads // 8)) * 16
     flick = rng.integers(-flicker, flicker + 1, xx.shape) if flicker else None
@@ -73,12 +94,16 @@ def synthetic_video(n: int, h: int, w: int, seed: int = 7,
                     ox = (bx // 8 % 2) * 2 + 1
                     y[by:by + 8, bx:bx + 8] = prev[by + oy:by + oy + 8,
                                                    bx + ox:bx + ox + 8]
+        if strip and i >= 1:
+            y[:, sx - 1:] = (i * 77) % 200 + 28
         if quads:
             y[q0y:q0y + quads, q0x:q0x + quads] = quad_patch
         if i >= 1:
             val = 255 if i % 2 else 0
             for by, bx in sites:
                 y[16 * by - 1:16 * by + 16, 16 * bx - 1:16 * bx + 16] = val
+            for by, bx in psites:
+                y[16 * by - 1:16 * by + 32, 16 * bx - 1:16 * bx + 48] = val
         out.append((y,
                     cb[dy // 2:dy // 2 + h // 2,
                        dx // 2:dx // 2 + w // 2].copy(),
