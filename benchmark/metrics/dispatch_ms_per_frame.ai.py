@@ -1,0 +1,5 @@
+"""dispatch_ms_per_frame.ai (layer api): dispatch_ms_per_frame, read in
+the all-intra cell, which reports no end-to-end fps."""
+import harness
+
+read = harness.metric_reader("dispatch_ms_per_frame")

@@ -1,0 +1,5 @@
+"""entropy_ms_per_frame.ai (layer entropy): entropy_ms_per_frame, read in
+the all-intra cell, which reports no end-to-end fps."""
+import harness
+
+read = harness.metric_reader("entropy_ms_per_frame")
