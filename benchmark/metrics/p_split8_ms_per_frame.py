@@ -1,0 +1,8 @@
+"""p_split8_ms_per_frame (layer models.inter_frame): the host time of
+the P frame program's p.split8 span (the 8x8 inter split) over the
+window, per frame.  Only a run with the program's spans on has it."""
+from program_spans import span_ms_per_frame
+
+
+def read(run):
+    return span_ms_per_frame(run, "p.split8")

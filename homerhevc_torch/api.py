@@ -102,6 +102,7 @@ class Encoder:
         self._rc = RateControl(cfg)
         self._per_ctu_qp = bool(self.ccfg.cu_qp_delta_enabled)
         self._force_idr = False
+        self._chunks = 0       # dispatches so far: the last chunk id
         # the I frame's tools below ULTRAFAST: the 8x8 split (with the TU
         # split at the parent's mode) and NxN 4x4 PUs with DST
         ultra = cfg.rd_mode == RDMode.RD_ULTRAFAST
@@ -222,7 +223,8 @@ class Encoder:
         calling thread."""
         done = []
         while len(self._pending) > keep:
-            frs = self._pending.pop(0).result()
+            with stage("api.drain_wait"):
+                frs = self._pending.pop(0).result()
             for fr in frs:
                 self._account(fr)
             self._out.extend(frs)
@@ -289,20 +291,22 @@ class Encoder:
     @torch.inference_mode()
     def _dispatch_i(self, y, u, v, compute_recon=False):
         ctu = self.cfg.ctu_size
-        yp = _pad_plane(np.asarray(y, np.uint8), ctu)
-        up = _pad_plane(np.asarray(u, np.uint8), ctu // 2)
-        vp = _pad_plane(np.asarray(v, np.uint8), ctu // 2)
-        qp = self._rc.start_pic(True)
-        self._gop_poc = 0
-        out = intra_frame.encode_frame(
-            self._to_dev(yp), self._to_dev(up), self._to_dev(vp), qp=qp,
-            **self._i_knobs())
-        self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
-        self._ref2 = None
-        pend = dict(kind="i", out=out, qp=qp, poc=self._poc,
-                    gop_poc=self._gop_poc, padded=yp.shape,
-                    orig=(y, u, v) if compute_recon else None,
-                    event=self._mark())
+        self._chunks += 1
+        with stage("api.dispatch", chunk=self._chunks, kind="i", frames=1):
+            with stage("api.upload"):
+                planes = [self._to_dev(_pad_plane(np.asarray(p, np.uint8), m))
+                          for p, m in ((y, ctu), (u, ctu // 2),
+                                       (v, ctu // 2))]
+            qp = self._rc.start_pic(True)
+            self._gop_poc = 0
+            out = intra_frame.encode_frame(*planes, qp=qp, **self._i_knobs())
+            self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
+            self._ref2 = None
+            pend = dict(kind="i", out=out, qp=qp, poc=self._poc,
+                        gop_poc=self._gop_poc,
+                        padded=tuple(planes[0].shape), chunk=self._chunks,
+                        orig=(y, u, v) if compute_recon else None,
+                        event=self._mark())
         self._poc += 1
         self._gop_poc += 1
         return pend
@@ -316,21 +320,28 @@ class Encoder:
         n_real = len(frames)
         k = max(self.cfg.intra_frames_per_launch, 1)
         frames = list(frames) + [frames[-1]] * (k - n_real)
-        planes = [self._to_dev(np.stack([
-            _pad_plane(np.asarray(f[i], np.uint8), ctu if i == 0 else ctu // 2)
-            for f in frames])) for i in range(3)]
-        qp = self._rc.start_pic(True)
-        if self._i_group is not None:
-            out = intra_frame.encode_i_chunk_sharded(
-                *planes, qp, group=self._i_group, **self._i_knobs())
-        else:
-            out = intra_frame.encode_i_chunk(*planes, qp, **self._i_knobs())
-        self._ref = (out["recon_y"][-1], out["recon_u"][-1],
-                     out["recon_v"][-1])
-        self._ref2 = None
-        pend = dict(kind="i_chunk", out=out, qp=qp, poc=self._poc,
-                    gop_poc=0, padded=tuple(planes[0].shape[1:]), n=n_real,
-                    orig=None, event=self._mark())
+        self._chunks += 1
+        with stage("api.dispatch", chunk=self._chunks, kind="i_chunk",
+                   frames=n_real):
+            with stage("api.upload"):
+                planes = [self._to_dev(np.stack([
+                    _pad_plane(np.asarray(f[i], np.uint8),
+                               ctu if i == 0 else ctu // 2)
+                    for f in frames])) for i in range(3)]
+            qp = self._rc.start_pic(True)
+            if self._i_group is not None:
+                out = intra_frame.encode_i_chunk_sharded(
+                    *planes, qp, group=self._i_group, **self._i_knobs())
+            else:
+                out = intra_frame.encode_i_chunk(*planes, qp,
+                                                 **self._i_knobs())
+            self._ref = (out["recon_y"][-1], out["recon_u"][-1],
+                         out["recon_v"][-1])
+            self._ref2 = None
+            pend = dict(kind="i_chunk", out=out, qp=qp, poc=self._poc,
+                        gop_poc=0, padded=tuple(planes[0].shape[1:]),
+                        n=n_real, chunk=self._chunks, orig=None,
+                        event=self._mark())
         self._poc += n_real
         self._gop_poc = 1
         return pend
@@ -350,43 +361,49 @@ class Encoder:
             self._force_idr = True
         else:
             frames = list(frames)
-        buf = np.concatenate([np.asarray(f[i], np.uint8).ravel()
-                              for i in range(3) for f in frames])
-        qps = self._rc.project_chunk(k)
-        qp_maps = None
-        if self._per_ctu_qp:
-            # per-CTU QPs from each frame's activity, uploaded as one
-            # tensor per chunk
-            qp_maps = np.stack([
-                ctu_qp_map(qps[j], _pad_plane(np.asarray(f[0], np.uint8),
-                                              ctu), ctu)
-                for j, f in enumerate(frames)])
-        ref2_kw = {}
-        if cfg.num_ref_frames >= 2:
-            # list0 index 1 is the picture before self._ref; the first P
-            # after an IDR has none yet (gop_poc counts pictures since the
-            # IDR), and the mask keeps its blocks on ref 0
-            r2 = self._ref2 if self._ref2 is not None else self._ref
-            ref2_kw = dict(
-                ref2_y=r2[0], ref2_u=r2[1], ref2_v=r2[2],
-                has_ref2=self._to_dev(np.asarray(
-                    [self._gop_poc + j >= 2 for j in range(k)])))
-        out = inter_frame.encode_p_chunk_packed(
-            self._to_dev(buf), *self._ref, k=k, vis_h=cfg.height,
-            vis_w=cfg.width, ctu=ctu, qp=qps,
-            qp_maps=None if qp_maps is None else self._to_dev(qp_maps),
-            group=self._p_group, n_bands=self.n_bands, **ref2_kw,
-            **self._p_knobs())
-        self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
-        if ref2_kw:
-            self._ref2 = (out["recon2_y"], out["recon2_u"], out["recon2_v"])
-        pend = dict(kind="p", out=out, qps=qps, poc=self._poc,
-                    gop_poc=self._gop_poc,
-                    padded=(-cfg.height % ctu + cfg.height,
-                            -cfg.width % ctu + cfg.width),
-                    n=n_real, qp_maps=qp_maps,
-                    orig=frames[-1] if compute_recon else None,
-                    event=self._mark())
+        self._chunks += 1
+        with stage("api.dispatch", chunk=self._chunks, kind="p",
+                   frames=n_real):
+            qps = self._rc.project_chunk(k)
+            qp_maps = dev_qp_maps = None
+            ref2_kw = {}
+            with stage("api.upload"):
+                buf = self._to_dev(np.concatenate([
+                    np.asarray(f[i], np.uint8).ravel()
+                    for i in range(3) for f in frames]))
+                if self._per_ctu_qp:
+                    # per-CTU QPs from each frame's activity, uploaded as
+                    # one tensor per chunk
+                    qp_maps = np.stack([
+                        ctu_qp_map(qps[j], _pad_plane(
+                            np.asarray(f[0], np.uint8), ctu), ctu)
+                        for j, f in enumerate(frames)])
+                    dev_qp_maps = self._to_dev(qp_maps)
+                if cfg.num_ref_frames >= 2:
+                    # list0 index 1 is the picture before self._ref; the
+                    # first P after an IDR has none yet (gop_poc counts
+                    # pictures since the IDR), and the mask keeps its
+                    # blocks on ref 0
+                    r2 = self._ref2 if self._ref2 is not None else self._ref
+                    ref2_kw = dict(
+                        ref2_y=r2[0], ref2_u=r2[1], ref2_v=r2[2],
+                        has_ref2=self._to_dev(np.asarray(
+                            [self._gop_poc + j >= 2 for j in range(k)])))
+            out = inter_frame.encode_p_chunk_packed(
+                buf, *self._ref, k=k, vis_h=cfg.height, vis_w=cfg.width,
+                ctu=ctu, qp=qps, qp_maps=dev_qp_maps, group=self._p_group,
+                n_bands=self.n_bands, **ref2_kw, **self._p_knobs())
+            self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
+            if ref2_kw:
+                self._ref2 = (out["recon2_y"], out["recon2_u"],
+                              out["recon2_v"])
+            pend = dict(kind="p", out=out, qps=qps, poc=self._poc,
+                        gop_poc=self._gop_poc,
+                        padded=(-cfg.height % ctu + cfg.height,
+                                -cfg.width % ctu + cfg.width),
+                        n=n_real, qp_maps=qp_maps, chunk=self._chunks,
+                        orig=frames[-1] if compute_recon else None,
+                        event=self._mark())
         self._poc += n_real
         self._gop_poc += n_real
         return pend
@@ -415,8 +432,9 @@ class Encoder:
         records, then entropy coding."""
         out = pend["out"]
         if pend.get("event") is not None:
-            pend["event"].synchronize()
-        with stage("transfer"):
+            with stage("api.device_wait", chunk=pend["chunk"]):
+                pend["event"].synchronize()
+        with stage("transfer", chunk=pend["chunk"]):
             packed = self._host(out["packed"])
         frames = []
         for pk, rec, is_idr in self._records(packed, pend):
@@ -432,7 +450,7 @@ class Encoder:
         return frames
 
     def _emit(self, rec, pend, is_idr: bool) -> CodedFrame:
-        with stage("entropy"):
+        with stage("entropy", chunk=pend["chunk"]):
             slice_bytes = binding.encode_slice(self.ccfg, rec)
         nalus = (self._headers if is_idr else b"") + slice_bytes
         frame = CodedFrame(poc=pend["poc"], nalus=nalus,

@@ -38,13 +38,13 @@ import functools
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from homerhevc_torch import parallel, tables
 from homerhevc_torch.models import intra_frame, schedule
 from homerhevc_torch.ops import (deblock, f32, interp, intra, me, packing,
                                  quant, rdbits, sao, transform)
 from homerhevc_torch.ops.me import blocks as _blocks
+from homerhevc_torch.utils.profiler import stage
 
 _PAD_DIST_W = 0.0625
 _FALLBACK_CAP = 512          # max intra CUs per fallback round
@@ -1334,7 +1334,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
             return me.field_median(bands.gather(mv0))
     multi_ref = ref2_y is not None
     ref_sel = None
-    with record_function("p.me"):
+    with stage("p.me"):
         mv, sad_me, pred = me.motion_estimate(cur, refy, block=s,
                                               precision=me_precision,
                                               subpel_r=me_subpel_r,
@@ -1373,7 +1373,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
         ref_pads = torch.stack([ref_pad, me.pad_edge(ref2y, me.REF_PAD)]) \
             .contiguous()
 
-    with record_function("p.merge"):
+    with stage("p.merge"):
         # round 2 re-evaluates only the left/top candidates, built from
         # round 1's winners (and their references), from the whole
         # frame's fields
@@ -1411,7 +1411,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     cur_full = None if sharded else cur
     if intra_fallback:
         full = bands.gather(cur_b, recon_y, level_y, cbf_y, pred_sel, sad_me)
-        with record_function("p.fallback"):
+        with stage("p.fallback"):
             (rec_f, lvl_f, cbf_f, is_intra_f, intra_modes, cand_count,
              fb_rounds, fb_serial) = _intra_fallback_luma(
                 full[0], full[1], full[2], full[3], full[4],
@@ -1423,7 +1423,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
             cbf_y = bands.band(cbf_f)
         if sharded:
             cur_full = _unblocks(full[0], h, w)
-        with record_function("p.intra_pref"):
+        with stage("p.intra_pref"):
             cand_count = torch.maximum(
                 cand_count, _intra_pref_count(cur_full, full[5], cand_count,
                                               qpt, ctu, n_bands))
@@ -1436,14 +1436,14 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     nxn16 = torch.zeros((nb,), dtype=torch.bool, device=dev)
     mv8_pu = cbf8q = None
     if inter_nxn:
-        with record_function("p.split8"):
+        with stage("p.split8"):
             nxn16, mv8_pu, cbf8q, level_y, recon_y, cbf_y, cost16 = _split8(
                 cur, cur_b, ref_pad_sel, mv, pred_sel, cost16, level_y,
                 recon_y, cbf_y, is_intra, dil, inv16, qp_t, lam_t,
                 sign_hiding, ref_sel=ref_flat, scaling=scaling_lists,
                 bands=bands if sharded else None, row0=row0)
 
-    with record_function("p.quadtree"):
+    with stage("p.quadtree"):
         mv, level_y, recon_y, cbf_y, cu_depth, tr_depth, chroma16 = \
             quadtree_consolidate(cur_b, pred_sel, mv, level_y, recon_y,
                                  cost16, dil.reshape(-1) | nxn16, qp_t,
@@ -1458,7 +1458,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     mv_f = mv.reshape(-1, 2)
 
     lam_cs = lam_ct * chroma_rd_scale
-    with record_function("p.chroma"):
+    with stage("p.chroma"):
         cplanes = (_chroma_planes(ref_u, ref2_u, ref_v, ref2_v) if multi_ref
                    else _chroma_planes(ref_u, ref_v))
         lvl_c, rec_c, cbf_c = _code_chroma(
@@ -1479,7 +1479,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     if sharded:
         # frame assembly: the band's maps to the whole frame's (one
         # gather); the luma reconstruction follows its vertical deblock
-        with record_function("p.assemble"):
+        with stage("p.assemble"):
             parts = [level_y, lvl_c[0], lvl_c[1], rec_c[0], rec_c[1],
                      cbf_y, cbf_c[0], cbf_c[1], mv, cu_depth, tr_depth,
                      nxn16.reshape(bh, bw), u32, v32, dsum]
@@ -1512,7 +1512,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
     if intra_fallback:
         # per round, so a later round's references read the chroma the
         # earlier rounds committed (whole frame, replicated when sharded)
-        with record_function("p.fallback_chroma"):
+        with stage("p.fallback_chroma"):
             orig_c = [_blocks(u32, cs), _blocks(v32, cs)]
             for sel, ok, best in fb_rounds:
                 for p in range(2):
@@ -1544,7 +1544,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
                      | (cbf8c[1].to(torch.int32) << 2))
 
     if deblocking:
-        with record_function("p.deblock"):
+        with stage("p.deblock"):
             qp_g16 = _effective_qp16(qp, qp_map, cbf_y | cbf_c[0] | cbf_c[1],
                                      cu_depth, ctu, s, wpp_substreams)
             ii = is_intra_f.reshape(bh, bw) if intra_fallback else None
@@ -1583,7 +1583,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
 
     sao_fields = None
     if sao_enabled:
-        with record_function("p.sao"):
+        with stage("p.sao"):
             out_y, out_u, out_v, sao_fields = sao.sao_frame(
                 cur_full, u32, v32, out_y, out_u, out_v, lam, lam_c, ctu,
                 coded=None if cw8 is None else (ch8, cw8))
@@ -1598,7 +1598,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp: int, block: int = 16,
         out["ref_idx"] = ref_sel
     cap_y, cap_c, esc_y, esc_c = p_caps(nb)
     cap_ys, cap_cs, esc_ys, esc_cs = p_caps_small(nb)
-    with record_function("p.pack"):
+    with stage("p.pack"):
         pk_y_s, pk_y_f = packing.compact_blocks_i8_tiers(
             level_y, [(cap_ys, esc_ys), (cap_y, esc_y)])
         pk_u_s, pk_u_f = packing.compact_blocks_i8_tiers(
@@ -1666,10 +1666,12 @@ def encode_p_chunk(ys, us, vs, ref_y, ref_u, ref_v, qp, qp_maps=None,
         if ref2 is not None:
             kw = dict(ref2_y=ref2[0], ref2_u=ref2[1], ref2_v=ref2[2],
                       has_ref2=None if has_ref2 is None else has_ref2[j])
-        out = encode_p_frame(bands.band(ys[j]), bands.band(us[j]),
-                             bands.band(vs[j]), *ref, qp=qps[j],
-                             qp_map=None if qp_maps is None else qp_maps[j],
-                             group=group, n_bands=n_bands, **kw, **flags)
+        with stage("p.frame"):
+            out = encode_p_frame(
+                bands.band(ys[j]), bands.band(us[j]), bands.band(vs[j]),
+                *ref, qp=qps[j],
+                qp_map=None if qp_maps is None else qp_maps[j], group=group,
+                n_bands=n_bands, **kw, **flags)
         if ref2 is not None:
             ref2 = ref
         ref = (out["recon_y"], out["recon_u"], out["recon_v"])

@@ -43,6 +43,7 @@ from homerhevc_torch.models import schedule
 from homerhevc_torch.ops import (deblock, f32, intra, quant, rdbits, sao,
                                  transform)
 from homerhevc_torch.ops.me import blocks as _blocks
+from homerhevc_torch.utils.profiler import count, stage
 
 _CU_HDR_BITS = 6.0
 _SPLIT_BITS = 1.5
@@ -811,8 +812,11 @@ def encode_i_chunk(ys, us, vs, qp: int, ctu: int = 64,
     # ---- pass 1: dense decision, frame by frame
     sqrt_lam = torch.sqrt(lamf) * rd_lambda_scale
     sqrt_lam_c = torch.sqrt(lamcf)
-    per = [_dense_decision(y32[f], uv32[f], uv32[nf + f], ctu, sqrt_lam,
-                           sqrt_lam_c, tiles, o) for f in range(nf)]
+    per = []
+    for f in range(nf):
+        with stage("i.dense"):
+            per.append(_dense_decision(y32[f], uv32[f], uv32[nf + f], ctu,
+                                       sqrt_lam, sqrt_lam_c, tiles, o))
     dec = {key: torch.stack([d[key] for d in per],
                             1 if key in _TOPK_KEYS else 0)
            for key in per[0]}
@@ -833,7 +837,9 @@ def encode_i_chunk(ys, us, vs, qp: int, ctu: int = 64,
         nxn8=torch.zeros((nf, 2 * bh, 2 * bw), **i32),
         pu4=torch.zeros((nf, 4 * bh, 4 * bw), **i32))   # mode | cbf << 8
     for st in plan:
-        _wavefront_step(st, dec, y32, uv32, bufs, o)
+        with stage("i.step"):
+            _wavefront_step(st, dec, y32, uv32, bufs, o)
+        count("i.steps")
 
     # ---- pass 3, frame by frame: deblocking, SAO, the packed record
     outs = []
@@ -844,47 +850,51 @@ def encode_i_chunk(ys, us, vs, qp: int, ctu: int = 64,
         depth_map = bufs["depth"][f]
         dist16 = (out_y - y32[f]).abs().sum() // (bh * bw)
         if deblocking:
-            bs_v, bs_h = _intra_bs_from_tree(depth_map, h, w)
-            if cw8 < w or ch8 < h:
-                bs_v[:, cw8 // 8:] = 0
-                bs_h[ch8 // 8:, :] = 0
-            out_y = deblock.deblock_luma(out_y, bs_v, bs_h, qp)
-            bs_vc, bs_hc = _intra_bs_chroma_from_tree(depth_map, h // 2,
-                                                      w // 2)
-            if cw8 < w or ch8 < h:
-                bs_vc[:, cw8 // 16:] = 0
-                bs_hc[ch8 // 16:, :] = 0
-            out_u = deblock.deblock_chroma(out_u, bs_vc, bs_hc, qp_c)
-            out_v = deblock.deblock_chroma(out_v, bs_vc, bs_hc, qp_c)
+            with stage("i.deblock"):
+                bs_v, bs_h = _intra_bs_from_tree(depth_map, h, w)
+                if cw8 < w or ch8 < h:
+                    bs_v[:, cw8 // 8:] = 0
+                    bs_h[ch8 // 8:, :] = 0
+                out_y = deblock.deblock_luma(out_y, bs_v, bs_h, qp)
+                bs_vc, bs_hc = _intra_bs_chroma_from_tree(depth_map, h // 2,
+                                                          w // 2)
+                if cw8 < w or ch8 < h:
+                    bs_vc[:, cw8 // 16:] = 0
+                    bs_hc[ch8 // 16:, :] = 0
+                out_u = deblock.deblock_chroma(out_u, bs_vc, bs_hc, qp_c)
+                out_v = deblock.deblock_chroma(out_v, bs_vc, bs_hc, qp_c)
         sao_fields = None
         if sao_enabled:
-            out_y, out_u, out_v, sao_fields = sao.sao_frame(
-                y32[f], uv32[f], uv32[nf + f], out_y, out_u, out_v, lamf,
-                lamcf, ctu, tiles=tiles,
-                coded=(ch8, cw8) if (cw8 < w or ch8 < h) else None)
+            with stage("i.sao"):
+                out_y, out_u, out_v, sao_fields = sao.sao_frame(
+                    y32[f], uv32[f], uv32[nf + f], out_y, out_u, out_v,
+                    lamf, lamcf, ctu, tiles=tiles,
+                    coded=(ch8, cw8) if (cw8 < w or ch8 < h) else None)
         modes8_map, cmodes8_map = bufs["modes8"][f], bufs["cmodes8"][f]
         cbf8_map = bufs["cbf8"][:, f]
-        out = dict(recon_y=out_y, recon_u=out_u, recon_v=out_v,
-                   coeff_y=bufs["cf_y"][f].to(torch.int16),
-                   coeff_cb=bufs["cf_c"][f].to(torch.int16),
-                   coeff_cr=bufs["cf_c"][nf + f].to(torch.int16),
-                   modes=modes8_map, cmodes=cmodes8_map, cbf=cbf8_map,
-                   depth=depth_map)
-        parts = [out["coeff_y"].reshape(-1), out["coeff_cb"].reshape(-1),
-                 out["coeff_cr"].reshape(-1),
-                 modes8_map.to(torch.int16).reshape(-1),
-                 cmodes8_map.to(torch.int16).reshape(-1),
-                 cbf8_map.to(torch.int16).reshape(-1),
-                 depth_map.to(torch.int16).reshape(-1),
-                 dist16.clamp(0, 32767).to(torch.int16)[None]]
-        if search_nxn:
-            out["nxn"] = bufs["nxn8"][f]
-            out["pu4"] = bufs["pu4"][f]
-            parts += [out["nxn"].to(torch.int16).reshape(-1),
-                      out["pu4"].to(torch.int16).reshape(-1)]
-        if sao_fields is not None:
-            parts.append(sao.pack_sao_fields(sao_fields))
-        out["packed"] = torch.cat(parts)
+        with stage("i.pack"):
+            out = dict(recon_y=out_y, recon_u=out_u, recon_v=out_v,
+                       coeff_y=bufs["cf_y"][f].to(torch.int16),
+                       coeff_cb=bufs["cf_c"][f].to(torch.int16),
+                       coeff_cr=bufs["cf_c"][nf + f].to(torch.int16),
+                       modes=modes8_map, cmodes=cmodes8_map, cbf=cbf8_map,
+                       depth=depth_map)
+            parts = [out["coeff_y"].reshape(-1),
+                     out["coeff_cb"].reshape(-1),
+                     out["coeff_cr"].reshape(-1),
+                     modes8_map.to(torch.int16).reshape(-1),
+                     cmodes8_map.to(torch.int16).reshape(-1),
+                     cbf8_map.to(torch.int16).reshape(-1),
+                     depth_map.to(torch.int16).reshape(-1),
+                     dist16.clamp(0, 32767).to(torch.int16)[None]]
+            if search_nxn:
+                out["nxn"] = bufs["nxn8"][f]
+                out["pu4"] = bufs["pu4"][f]
+                parts += [out["nxn"].to(torch.int16).reshape(-1),
+                          out["pu4"].to(torch.int16).reshape(-1)]
+            if sao_fields is not None:
+                parts.append(sao.pack_sao_fields(sao_fields))
+            out["packed"] = torch.cat(parts)
         outs.append(out)
     return {key: torch.stack([t[key] for t in outs]) for key in outs[0]}
 

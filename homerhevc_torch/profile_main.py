@@ -18,22 +18,23 @@ through encode_async/flush under torch.profiler.  Prints one JSON line
 per window, tagged with its configuration: its wall time and, for the
 profiled P window, the share of it in which the device ran work, the
 device operations launched per frame, the host and device time of each
-encoder stage (the "p.*" record_function ranges: p.me, p.merge,
-p.fallback, p.intra_pref, p.split8, p.quadtree, p.chroma,
-p.fallback_chroma, p.deblock, p.sao, p.pack) and the kernels with the
-most device time.  A last pass over one more P chunk counts the
+encoder stage (the "p.*" spans of utils.profiler, which open a
+record_function range of their name under torch.profiler: p.frame,
+p.me, p.merge, p.fallback, p.intra_pref, p.split8, p.quadtree,
+p.chroma, p.fallback_chroma, p.deblock, p.sao, p.pack) and the kernels
+with the most device time.  A last pass over one more P chunk counts the
 host<->device synchronisations, in all and by source line (torch.cuda
 sync debug mode).
 
 `allintra` (only when named) encodes 1280x720 all-intra chunks
 (intra_period=1, tile_auto: a 4x3 tile grid, default scaling lists,
 intra_frames_per_launch=8, rd=FAST) on the same video: a warm-up chunk,
-a chunk timed by wall clock, and a chunk with its stages clocked (each
-frame's dense decision and each wavefront step between synchronisations;
-the rest is deblocking, SAO, packing and entropy coding) and one
-wavefront step under torch.profiler (its device operations, the share
-of the step in which the device ran work, its top kernels).  Needs a
-CUDA device.
+a chunk timed by wall clock, and a chunk with the host time of its
+stages, the totals of utils.profiler's spans (i.dense, i.step, i.deblock,
+i.sao, i.pack, api.upload, transfer, entropy; host time, no
+synchronisation added) and one wavefront step under torch.profiler (its
+device operations, the share of the step in which the device ran work,
+its top kernels).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ from torch.profiler import ProfilerActivity, profile
 from homerhevc_torch.api import Encoder
 from homerhevc_torch.config import BitrateMode, EncoderConfig, RDMode
 from homerhevc_torch.models import intra_frame
+from homerhevc_torch.utils import profiler
 from homerhevc_torch.utils.synthetic import synthetic_video
 
 
@@ -142,50 +144,32 @@ class StepProbe:
     (counted from 1) are kept; replay() runs that step again, after the
     run (the step only writes its slots into the chunk's buffers): once
     between two synchronisations for its wall time, once under
-    torch.profiler for its device operations and device-busy share.
-    clock=True also times every dense decision and wavefront step of
-    the run between synchronisations (`clocks`)."""
+    torch.profiler for its device operations and device-busy share."""
 
-    def __init__(self, which: int, clock: bool = False):
-        self.which, self.clock = which, clock
+    def __init__(self, which: int):
+        self.which = which
         self.calls = 0
         self.args = None
-        self.clocks = collections.defaultdict(float)
-
-    def _timed(self, name, fn):
-        def call(*args):
-            if not self.clock:
-                return fn(*args)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            self.clocks[name + "_ms"] += (time.perf_counter() - t0) * 1e3
-            self.clocks[name + "_calls"] += 1
-            return out
-        return call
 
     def __enter__(self):
-        self.real = (intra_frame._wavefront_step, intra_frame._dense_decision)
-        step_t = self._timed("wavefront", self.real[0])
+        self.real = intra_frame._wavefront_step
 
         def step(*args):
             self.calls += 1
             if self.calls == self.which:
                 self.args = args
-            return step_t(*args)
+            return self.real(*args)
         intra_frame._wavefront_step = step
-        intra_frame._dense_decision = self._timed("dense", self.real[1])
         return self
 
     def __exit__(self, *exc):
-        intra_frame._wavefront_step, intra_frame._dense_decision = self.real
+        intra_frame._wavefront_step = self.real
 
     @torch.inference_mode()
     def replay(self) -> dict:
         """Runs as the Encoder's dispatches run the step: its buffers are
         inference tensors."""
-        step = self.real[0]
+        step = self.real
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(*self.args)
@@ -207,7 +191,7 @@ class StepProbe:
 
 
 def all_intra(card: str, size=(1280, 720), k: int = 8):
-    """The all-intra configuration: chunk wall time, stage clocks and one
+    """The all-intra configuration: chunk wall time, stage spans and one
     profiled wavefront step (see the module docstring)."""
     cfg = EncoderConfig(width=size[0], height=size[1], qp=32,
                         intra_period=1, tile_auto=True, scaling_lists=True,
@@ -230,10 +214,15 @@ def all_intra(card: str, size=(1280, 720), k: int = 8):
     emit(dict(_wall("warmup_chunk", chunk), frames=k))
     res = _wall("i_chunk", chunk)
     emit(dict(res, frames=k, s_per_frame=res["wall_ms"] / 1e3 / k))
-    with StepProbe(which=10, clock=True) as probe:
-        res = _wall("i_chunk_clocked", chunk)
-    emit(dict(res, frames=k, stages=dict(probe.clocks),
-              profiled_step=probe.replay()))
+    profiler.enable()
+    profiler.reset()
+    try:
+        with StepProbe(which=10) as probe:
+            res = _wall("i_chunk_spans", chunk)
+        stages = dict(profiler.report(), **profiler.counters())
+    finally:
+        profiler.enable(False)
+    emit(dict(res, frames=k, stages=stages, profiled_step=probe.replay()))
 
 
 P_FRAMES = 4
