@@ -67,8 +67,8 @@ Phases (any failure raises and exits non-zero):
      of phase 5's video through Encoder.encode_async/flush as one chunk
      of intra_frames_per_launch=8, then its first frame alone through
      Encoder.encode (one frame per wavefront step), which must give the
-     chunk's bytes for it: no kernel may be launched (the I frame has
-     none); prints the wavefront steps with and without the tiles, the
+     chunk's bytes for it: no kernel may be launched but SAO's three,
+     once per frame (the I frame has no other); prints the wavefront steps with and without the tiles, the
      chunk's and the single frame's seconds, bits and PSNR per frame, and
      the device operations and wall time of one wavefront step at 8
      frames and at 1 (step 10, run again after its run);
@@ -91,7 +91,7 @@ Phases (any failure raises and exits non-zero):
      prints per rank the band count, launches per band P frame and P fps
      (no claim: the ranks share the card); (b) phase 8's chunk of 8 in
      two frame shards must give phase 8's bytes, with no kernel
-     launched; (c) NCCL with one rank per card runs (a) again where the
+     launched but SAO's; (c) NCCL with one rank per card runs (a) again where the
      machine has two cards, and otherwise a line says it did not run
      and why;
  11. the intra fallback's serial pass: 8 P frames at 1280x720 rd=FAST
@@ -105,7 +105,20 @@ Phases (any failure raises and exits non-zero):
      the CPU's from the same checkpoint (a stage-A child, `chip_smoke.py
      --serial-cpu DIR`); prints the serial commits per frame, P fps with
      and without the pass (two encoders from the same state, chunk by
-     chunk in turns) and the device operations per P frame of each.
+     chunk in turns) and the device operations per P frame of each;
+ 12. SAO's three kernels (sao_stats, sao_decide, sao_apply) against the
+     plain version, byte for byte on the planes (padding included), the
+     fields and the packed tail: a 720p rd=ULTRAFAST stream's own inputs
+     of its I frame and first P frame (1280x768, coded 720x1280; the I
+     frame's also with the all-intra cell's 4x3 tiles, the P frame's also
+     without merge RDO), grain at QPs 22-37 and a mosaic of exact and
+     near ties (flat CTBs, CTBs whose EO classes tie, BO windows equal
+     but for the float32 order of their sums) at 720p and at 1920x1088
+     coded 1080x1920, each untiled, tiled and without merge RDO; each
+     kernel's device time at the P frame's shapes beside its bytes bound
+     and the plain version's time; no host sync in a call; 3 launches
+     per frame of the stream.  `chip_smoke.py --sao` runs phase 1 and
+     this phase alone.
 The work runs in two stages.  Stage A runs at once what no number of
 this script times: phase 3's cases (cuda and cpu, two child processes
 each), phase 9(a)'s console app, the I frames of phases 5 and 7
@@ -116,9 +129,10 @@ stays in flight, as in a continuous run: under CBR a flush after the I
 frame would change the P frames' QPs).  These are launch-bound and leave
 the card idle most of the time, so the jobs share it.  Stage B then
 runs, alone, everything that is timed: phase 4, the P frames of phases
-5-7 (5 and 7 from their checkpoints), phases 8, 9(b), 10 and 11 and
+5-7 (5 and 7 from their checkpoints), phases 8, 9(b), 10, 11 and 12 and
 the kernel timings.
-The line before the last two is {"kernels": [...]}: per kernel, on one
+The line before the kernels line is {"sao_kernels": [...]}, phase 12's
+rows.  The line before the last two is {"kernels": [...]}: per kernel, on one
 phase-7 P frame's inputs, its launches over the phase, error, time
 (median and spread of 5 runs of 50), the plain version's and a PyTorch
 call's time and its bound, and the same for phase 5 (`rd_fast_path`),
@@ -143,6 +157,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -151,14 +166,14 @@ import torch.distributed as dist
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available")
 
-from homerhevc_torch import cli                               # noqa: E402
+from homerhevc_torch import cli, tables                       # noqa: E402
 from homerhevc_torch.api import Encoder                       # noqa: E402
 from homerhevc_torch.config import (                        # noqa: E402
     BitrateMode, EncoderConfig, RDMode)
 from homerhevc_torch.entropy import binding                   # noqa: E402
 from homerhevc_torch.models import (                         # noqa: E402
     inter_frame, intra_frame, schedule)
-from homerhevc_torch.ops import kernels                       # noqa: E402
+from homerhevc_torch.ops import kernels, rdbits, sao          # noqa: E402
 from homerhevc_torch.parallel import multihost                # noqa: E402
 from homerhevc_torch.profile_main import StepProbe            # noqa: E402
 from homerhevc_torch.profile_main import _busy_us                # noqa: E402
@@ -822,7 +837,8 @@ def drive_i(cfg, frames, ckpt=None) -> dict:
     `ckpt`, then flush() and the encoder's state saved there; without, the
     I frame stays in flight (its host stage done, its bits not yet
     accounted), so the P frames are dispatched as in a continuous run.
-    The I frame must launch no kernel.  Returns the run for drive."""
+    The I frame must launch no kernel but SAO's three (one each, with SAO
+    on).  Returns the run for drive."""
     enc = Encoder(cfg)
     run = dict(enc=enc, out=[], recs=[])
     with slices_to(run["recs"]):
@@ -837,7 +853,9 @@ def drive_i(cfg, frames, ckpt=None) -> dict:
         torch.cuda.synchronize()
         run["i_s"] = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    assert not any(counts.values()), f"the I frame launched {counts}"
+    assert not any(counts[k] for k in KERNELS) and all(
+        counts[k] == cfg.sao for k in kernels.SAO_KERNELS), \
+        f"the I frame launched {counts}"
     return run
 
 
@@ -880,6 +898,8 @@ def drive(cfg, frames, label, run=None, i_note="", serial: int = 0):
             f"kernel {name} was not launched on the {label} path"
         assert counts[name] == n_p * len(per_frame[name]), \
             (name, counts[name], n_p, len(per_frame[name]))
+    for name in kernels.SAO_KERNELS:
+        assert counts[name] == n_p * cfg.sao, (name, counts[name], n_p)
     assert not any(f._is_idr for f in out[1:]), "unexpected IDR restart"
     y = enc._ref[0].cpu().numpy()[:cfg.height, :cfg.width]
     p = psnr(frames[-1][0], y)
@@ -1032,8 +1052,9 @@ def all_intra_cfg(k=8, size=(1280, 720), **kw) -> EncoderConfig:
 def phase_all_intra(k=8, size=(1280, 720), tiles=(4, 3), n_steps=(146, 38)):
     """The all-intra path: tile_auto (at 720p a 4x3 grid: 146 wavefront
     steps become 38) and the default scaling lists, one chunk of k
-    frames, then the first frame alone.  No kernel may launch.  Returns
-    the numbers it prints and the chunk's Annex-B bytes per frame."""
+    frames, then the first frame alone.  No kernel may launch but SAO's
+    three, once per frame.  Returns the numbers it prints and the chunk's
+    Annex-B bytes per frame."""
     cfg = all_intra_cfg(k, size)
     assert cfg.tiles == tiles, cfg.tiles
     slots = (cfg.padded_width // 32, cfg.padded_height // 32, 2)
@@ -1064,7 +1085,9 @@ def phase_all_intra(k=8, size=(1280, 720), tiles=(4, 3), n_steps=(146, 38)):
         one_s = time.perf_counter() - t0
     step_1 = probe.replay()
     counts = kernels.launch_counts()
-    assert not any(counts.values()), f"the all-intra path launched {counts}"
+    assert not any(counts[n] for n in KERNELS) and all(
+        counts[n] == (k + 1) * cfg.sao for n in kernels.SAO_KERNELS), \
+        f"the all-intra path launched {counts}"
     assert len(out) == k and all(f._is_idr for f in out), len(out)
     assert one.nalus == out[0].nalus, "one frame alone != its chunk's bytes"
     rec = recon[0].cpu().numpy()[:, :cfg.height, :cfg.width]
@@ -1129,6 +1152,8 @@ def phase_cli(d, frames, cbr_stream, wall_a, n_p=8):
         counts = kernels.launch_counts()
     finally:
         Encoder._dispatch_p_chunk = real
+    for name in kernels.SAO_KERNELS:
+        assert counts[name] == (n_p + 1) * cfg.sao, (name, counts)
     per_frame = {}
     for name, v in rec.items():
         assert counts[name] > 0, \
@@ -1256,8 +1281,8 @@ def phase_multi_device(ckpt, p_nalus, ai_nalus, n_p=8):
     kernel launched at the band shapes and, on each rank's recorded
     inputs of one band P frame, equal to its plain version; (b) phase 8's
     all-intra chunk in two frame shards must give phase 8's bytes, with
-    no kernel launched; (c) NCCL with one rank per card where the machine
-    has two cards.  Returns rank 1's (the lower band's) launch counts and
+    no kernel launched but SAO's; (c) NCCL with one rank per card where
+    the machine has two cards.  Returns rank 1's (the lower band's) launch counts and
     recorded calls of one P frame."""
     world = 2
     cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
@@ -1284,9 +1309,15 @@ def phase_multi_device(ckpt, p_nalus, ai_nalus, n_p=8):
         for name in KERNELS:
             assert a["counts"][name] == n_p * len(per_frame[name]) > 0, \
                 (r, name, a["counts"][name], len(per_frame[name]))
+        # SAO runs on the whole frame on every rank, after the gather
+        for name in kernels.SAO_KERNELS:
+            assert a["counts"][name] == n_p, (r, name, a["counts"])
         err = hold_against_plain(per_frame, f"rank {r}'s band inputs")
         assert b["n_frame_shards"] == world, b["n_frame_shards"]
-        assert not any(b["counts"].values()), b["counts"]
+        # each rank runs SAO on the frames of its shard
+        sao_b = {b["counts"][name] for name in kernels.SAO_KERNELS}
+        assert not any(b["counts"][name] for name in KERNELS) and \
+            len(sao_b) == 1 and sao_b.pop() > 0, b["counts"]
         assert b["nalus"] == ai_nalus, f"rank {r}: all-intra shards differ"
         per_rank.append(per_frame)
         log(f"[multi_device] (a) gloo rank {r} of {world} on cuda:0: "
@@ -1410,6 +1441,298 @@ def phase_serial(d, n_p=8):
             f"{prof[name]['wall_ms']:.1f} ms")
     log(f"[serial] phase 11 {time.perf_counter() - t_phase:.1f}s")
     return counts, per_frame
+
+
+# -------------------------------------------------------------- phase 12
+SAO_QPS = (22, 27, 32, 37)      # the synthetic cases' lambdas
+SAO_REPS = 20                   # calls per kernel timing
+
+
+def sao_lams(qp):
+    """(lam_y, lam_c) of a P slice at qp, as the encoder computes them
+    (chroma QP offset 2)."""
+    qpc = int(tables.CHROMA_QP_TABLE[qp + 2])
+    return tuple(rdbits.rd_lambda_f32(torch.tensor(q, device=DEV), False)
+                 for q in (qp, qpc))
+
+
+def sao_noise(seed, h, w):
+    """Original and pre-SAO reconstruction (Y, Cb, Cr; a luma h x w frame)
+    of smooth content with grain, the reconstruction a few levels off with
+    a bias that varies slowly across the frame (so that neighbouring CTUs
+    want like parameters and merges fire)."""
+    rng = np.random.default_rng(seed)
+    planes = []
+    for s in (1, 2, 2):
+        yy, xx = np.mgrid[0:h // s, 0:w // s] * s
+        org = (128 + 70 * np.sin(yy / 41.0) * np.cos(xx / 67.0)
+               + rng.normal(0, 9, yy.shape))
+        bias = np.round(3 * np.sin(xx / 300.0 + yy / 170.0))
+        rec = org + bias + rng.integers(-4, 5, yy.shape) * (xx % 5 == 0)
+        planes.append((org, rec))
+    return ([i32(np.clip(o, 0, 255)) for o, _ in planes]
+            + [i32(np.clip(r, 0, 255)) for _, r in planes])
+
+
+def tie_ctb(kind, b, rng):
+    """(org, rec) of one b x b CTB of a tie mosaic kind:
+    0 flat and exact (every EO category empty, every BO cost 0);
+    1 symmetric under transpose and both flips (EO classes 0 / 1 and
+      2 / 3 see the same statistics, so their costs tie exactly and the
+      first must win), tiled so that the symmetry holds across CTBs,
+      with a ringing that makes EO the best mode;
+    2 bands 8..15 in equal counts with mirrored errors (band 8 + i and
+      15 - i alike): BO windows that are equal in exact arithmetic and
+      differ only by the float32 order of the prefix sums;
+    3 grain (no tie)."""
+    if kind == 0:
+        o = np.full((b, b), 100)
+        return o, o
+    if kind == 1:
+        # a gentle slope under a checkerboard of +-4 in (|y - c|, |x - c|)
+        c = (b - 1) / 2.0
+        yy, xx = np.mgrid[0:b, 0:b]
+        dy = np.abs(yy - c).astype(int)
+        dx = np.abs(xx - c).astype(int)
+        org = 90 + dy + dx + rng.integers(0, 40)
+        return org, org + 4 * (2 * ((dy + dx) % 2) - 1)
+    if kind == 2:
+        bands = rng.permutation(np.arange(b * b) % 8) + 8
+        d = np.array([3, -2, 5, 1, 1, 5, -2, 3])[bands - 8]
+        rec = (bands * 8 + rng.integers(0, 8, b * b)).reshape(b, b)
+        return np.clip(rec + d.reshape(b, b), 0, 255), rec
+    o = rng.integers(40, 210, (b, b))
+    return o, np.clip(o + rng.integers(-3, 4, (b, b)), 0, 255)
+
+
+def sao_ties(seed, h, w):
+    """A mosaic of tie_ctb kinds in runs along each CTU row (a run of like
+    CTBs makes merge chains; a run's end breaks them), the same kind in
+    a CTU's luma and chroma CTBs."""
+    rng = np.random.default_rng(seed)
+    by, bx = h // 64, w // 64
+    kinds = np.repeat(rng.integers(0, 4, (by, (bx + 2) // 3)), 3, 1)[:, :bx]
+    out = []
+    for b in (64, 32, 32):
+        tiles = {k: tie_ctb(k, b, rng) for k in range(4)}
+        org = np.zeros((by * b, bx * b), np.int64)
+        rec = np.zeros_like(org)
+        for r in range(by):
+            for c in range(bx):
+                o, x = tiles[int(kinds[r, c])]
+                org[r * b:(r + 1) * b, c * b:(c + 1) * b] = o
+                rec[r * b:(r + 1) * b, c * b:(c + 1) * b] = x
+        out.append((org, rec))
+    return [i32(o) for o, _ in out] + [i32(r) for _, r in out]
+
+
+def sao_differs(got, want) -> list:
+    """What differs between two sao_frame results: planes (every sample,
+    the padding included), the fields and the packed tail."""
+    bad = []
+    for name, g, w_ in zip(("Y", "Cb", "Cr"), got[:3], want[:3]):
+        if g.shape != w_.shape or g.dtype != w_.dtype:
+            bad.append(f"{name} {tuple(g.shape)} {g.dtype} vs "
+                       f"{tuple(w_.shape)} {w_.dtype}")
+        elif not torch.equal(g, w_):
+            at = (g != w_).nonzero()
+            bad.append(f"{name}: {at.shape[0]} samples, first at "
+                       f"{at[0].tolist()}")
+    for k in ("type", "offsets", "band_pos"):
+        g, w_ = got[3][k], want[3][k]
+        if g.shape != w_.shape or g.dtype != w_.dtype:
+            bad.append(f"{k} {tuple(g.shape)} {g.dtype} vs "
+                       f"{tuple(w_.shape)} {w_.dtype}")
+        elif not torch.equal(g, w_):
+            at = (g != w_).nonzero()
+            first = tuple(at[0].tolist())
+            bad.append(f"{k}: {at.shape[0]} entries, first at {first}: "
+                       f"{int(g[first])} vs {int(w_[first])} (component, "
+                       f"CTU row, column[, k])")
+    if not torch.equal(sao.pack_sao_fields(got[3]),
+                       sao.pack_sao_fields(want[3])):
+        bad.append("packed tail")
+    return bad
+
+
+def record_sao(fn) -> list:
+    """Run fn with sao.sao_frame recording a copy of its arguments on
+    each call; returns [(args, kwargs), ...] in call order."""
+    calls = []
+    real = sao.sao_frame
+
+    def spy(*a, **k):
+        calls.append((tuple(t.clone() if isinstance(t, torch.Tensor) else t
+                            for t in a), dict(k)))
+        return real(*a, **k)
+    sao.sao_frame = spy
+    try:
+        fn()
+    finally:
+        sao.sao_frame = real
+    return calls
+
+
+def sao_encode(n_p=4):
+    """A 720p rd=ULTRAFAST stream of 1 I + n_p P frames (one chunk of
+    P frames) through encode_async/flush; returns the SAO launches of the
+    I frame and of the P chunk, and the recorded sao_frame calls of the
+    I frame and of the first P frame."""
+    cfg = EncoderConfig(width=1280, height=720, qp=32, intra_period=100,
+                        rd_mode=RDMode.RD_ULTRAFAST)
+    assert cfg.sao and cfg.frames_per_launch == n_p, cfg
+    frames = fast_video(1 + n_p, cfg.height, cfg.width)
+    enc = Encoder(cfg)
+    out = []
+    counts = []
+    for fr in (frames[:1], frames[1:]):
+        kernels.reset_launch_counts()
+        calls = record_sao(lambda fr=fr: [out.extend(enc.encode_async(*f))
+                                          for f in fr])
+        out += enc.flush()
+        torch.cuda.synchronize()
+        counts.append((kernels.launch_counts(), calls))
+    assert len(out) == 1 + n_p, len(out)
+    (c_i, calls_i), (c_p, calls_p) = counts
+    assert len(calls_i) == 1 and len(calls_p) == n_p, \
+        (len(calls_i), len(calls_p))
+    for k in kernels.SAO_KERNELS:
+        assert c_i[k] == 1 and c_p[k] == n_p, (k, c_i, c_p)
+    return c_i, c_p, calls_i[0], calls_p[0]
+
+
+def sao_bytes(h, w) -> dict:
+    """Least bytes of each SAO kernel at luma h x w: the stats read org
+    and rec and write their records; the decisions read the records and
+    write the fields; the apply reads rec and the fields and writes the
+    new planes."""
+    px = h * w * 3 // 2
+    n = (h // 64) * (w // 64)
+    recs = 3 * n * 122 * 4
+    fields = 18 * n * 4
+    return dict(sao_stats=8 * px + recs, sao_decide=recs + fields,
+                sao_apply=8 * px + fields)
+
+
+def host_syncs(fn) -> list:
+    """The sites of the CUDA operations that synchronise with the host
+    while fn runs (torch's sync debug mode)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def sao_kernel_ms(args, kw) -> dict:
+    """Device ms per call of each SAO kernel (torch.profiler, SAO_REPS
+    calls after a warm one)."""
+    sao.sao_frame(*args, **kw)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(SAO_REPS):
+            sao.sao_frame(*args, **kw)
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(kernels.SAO_KERNELS, 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in ms:
+            if f"{k}_kernel" in e.name:
+                ms[k] += (e.time_range.end - e.time_range.start) / 1e3
+    assert all(v > 0 for v in ms.values()), ms
+    return {k: v / SAO_REPS for k, v in ms.items()}
+
+
+def phase_sao():
+    """Phase 12: SAO's three kernels against the plain version on the
+    card, byte for byte on the planes (padding included), the fields and
+    the packed tail: the encoder's own inputs of a P frame and of an I
+    frame (untiled and with the all-intra cell's 4x3 tiles, and the P
+    frame's without merge RDO), grain at four QPs and a tie mosaic at
+    720p (untiled, tiled, no merge RDO) and at 1920x1088 with the coded
+    size 1080x1920.  Then each kernel's device time at the P frame's
+    shapes beside its bytes bound and the plain version's time, the
+    host syncs of one call (none), and the launches of an encoded stream
+    (3 per frame).  Returns the kernel rows."""
+    t0 = time.perf_counter()
+    c_i, c_p, (i_args, i_kw), (p_args, p_kw) = sao_encode()
+    assert p_kw.get("coded") == (720, 1280) and not p_kw.get("tiles"), p_kw
+    cases = [("P frame", p_args, p_kw), ("I frame", i_args, i_kw),
+             ("I frame, 4x3 tiles", i_args, dict(i_kw, tiles=(4, 3))),
+             ("P frame, no merge RDO", p_args, dict(p_kw, merge_rdo=False))]
+    for size, coded in (((768, 1280), (720, 1280)),
+                        ((1088, 1920), (1080, 1920))):
+        for qp in SAO_QPS:
+            planes = sao_noise(qp + size[0], *size)
+            for tiles, merge in ((None, True), ((4, 3), True),
+                                 (None, False)):
+                cases.append((f"grain {size[1]}x{size[0]} QP{qp} tiles "
+                              f"{tiles} merge {merge}",
+                              (*planes, *sao_lams(qp)),
+                              dict(ctu=64, coded=coded, tiles=tiles,
+                                   merge_rdo=merge)))
+        for qp in SAO_QPS:
+            planes = sao_ties(qp, *size)
+            for tiles, merge in ((None, True), ((4, 3), True),
+                                 (None, False)):
+                cases.append((f"ties {size[1]}x{size[0]} QP{qp} tiles "
+                              f"{tiles} merge {merge}",
+                              (*planes, *sao_lams(qp)),
+                              dict(ctu=64, coded=coded, tiles=tiles,
+                                   merge_rdo=merge)))
+    failed, merges = [], {}
+    for what, args, kw in cases:
+        got = sao.sao_frame(*args, **kw)
+        want = sao.sao_frame_plain(*args, **kw)
+        torch.cuda.synchronize()
+        bad = sao_differs(got, want)
+        if bad:
+            failed.append(f"{what}: {'; '.join(bad)}")
+        # how many CTUs took a neighbour's parameters (no merge RDO: none)
+        expl = sao.sao_frame_plain(*args, **dict(kw, merge_rdo=False))[3]
+        moved = (want[3]["offsets"] != expl["offsets"]).any(-1).any(0) | \
+            (want[3]["type"] != expl["type"]).any(0)
+        merges[what] = int(moved.sum())
+    log(f"[sao] {len(cases)} cases, {len(failed)} differ; CTUs that took a "
+        f"neighbour's parameters per case: {merges}")
+    for f in failed:
+        log(f"[sao] DIFFERS {f}")
+    assert not failed, f"{len(failed)} SAO cases differ from the plain version"
+    assert sum(merges.values()) > 0, "no case merged a CTU"
+    # the plain version's constant uploads show that the count sees syncs
+    plain_syncs = host_syncs(lambda: sao.sao_frame_plain(*p_args, **p_kw))
+    syncs = host_syncs(lambda: sao.sao_frame(*p_args, **p_kw))
+    assert plain_syncs and not syncs, (plain_syncs, syncs)
+    ms = sao_kernel_ms(p_args, p_kw)
+    total_ms, spread = time_ms(lambda: sao.sao_frame(*p_args, **p_kw),
+                               SAO_REPS)
+    plain_ms, _ = time_ms(lambda: sao.sao_frame_plain(*p_args, **p_kw), 3)
+    h, w = p_args[3].shape
+    rows = []
+    for k, nbytes in sao_bytes(h, w).items():
+        rows.append(dict(name=k, route="cuda", source="homerhevc_torch/csrc/"
+                         "sao.cu", replaces="none", launches=dict(
+                             i_frame=c_i[k], p_chunk=c_p[k]),
+                         max_abs_err=0, ms=ms[k],
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                         bound_by="bytes", plain_ms=plain_ms,
+                         library_ms=None))
+    for r in rows:
+        log(f"[sao] {r['name']}: {r['ms']:.5f} ms per 720p P frame (device, "
+            f"{SAO_REPS} calls), bound {r['bound_ms']:.5f} (bytes), the "
+            f"plain version's whole stage {plain_ms:.3f} ms")
+    log(f"[sao] sao_frame on the card: {total_ms:.4f} ms per call back to "
+        f"back (spread {spread[0]:.4f}-{spread[1]:.4f}; 3 launches, the "
+        f"allocations included), plain {plain_ms:.3f} ms; host syncs per "
+        f"call {len(syncs)} (plain {len(plain_syncs)}); launches: I frame {c_i}, the P chunk of 4 {c_p}; "
+        f"phase {time.perf_counter() - t0:.1f}s")
+    return rows
 
 
 def device_ops(fn, n) -> dict:
@@ -1621,6 +1944,7 @@ def main():
         band_counts, band_calls = phase_multi_device(
             os.path.join(work, "main_after_i.npz"), p_nalus, ai_nalus)
         serial_counts, serial_calls = phase_serial(work)
+        sao_rows = phase_sao()
     finally:
         stop_jobs(jobs)
         shutil.rmtree(work, ignore_errors=True)
@@ -1654,13 +1978,19 @@ def main():
                 f"{x['ms_spread'][1]:.4f}, plain {x['plain_ms']:.4f}, "
                 f"library {lib}, bound {x['bound_ms']:.5f} "
                 f"{r['bound_by']}), {x['launches']} launches")
-    log(f"[time] phases 1-11 {time.perf_counter() - t0:.1f}s (stage B "
+    log(f"[time] phases 1-12 {time.perf_counter() - t0:.1f}s (stage B "
         f"{time.perf_counter() - t_b:.1f}s)")
+    print(json.dumps({"sao_kernels": sao_rows}))
+    print(json.dumps({"kernels": rows}))
+    card_lines()
+
+
+def card_lines():
+    """The card's name and power limit, then the last line, ok."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
-    print(json.dumps({"kernels": rows}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1682,5 +2012,10 @@ if __name__ == "__main__":
         # phase 11's first P frame on the CPU (serial_cpu)
         torch.set_num_threads(2)
         serial_cpu(sys.argv[2])
+    elif sys.argv[1:2] == ["--sao"]:
+        # phases 1 and 12 alone
+        phase_build()
+        print(json.dumps({"sao_kernels": phase_sao()}))
+        card_lines()
     else:
         main()

@@ -8,6 +8,13 @@ Pallas TPU kernels of `homerhevc_tpu/ops/pallas_kernels.py`:
   case) and `gather_windows_ref` (a stack of R planes);
 * `slab_search.cu` serves `slab_search`.
 
+A third replaces no TPU kernel:
+
+* `sao.cu` holds SAO's three kernels (`sao_stats`, `sao_decide`,
+  `sao_apply`), which `sao_frame_launch` starts for `ops.sao.sao_frame`
+  on a CUDA tensor: the JAX package's SAO is plain jnp, and run eagerly
+  the same algorithm is thousands of small launches a frame.
+
 Each source is compiled with nvcc for sm_90a into its own shared library
 with a plain C interface, on first use, into the package's build
 directory (`homerhevc_torch/_build/`, git-ignored), and loaded with
@@ -30,14 +37,16 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _SOURCES = {"gather_windows": "gather_windows.cu",
-            "slab_search": "slab_search.cu"}
+            "slab_search": "slab_search.cu", "sao": "sao.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: dict = {}
 _lock = threading.Lock()
 _counts = {"gather_windows": 0, "gather_windows_ref": 0,
-           "slab_search": 0}
+           "slab_search": 0, "sao_stats": 0, "sao_decide": 0,
+           "sao_apply": 0}
+SAO_KERNELS = ("sao_stats", "sao_decide", "sao_apply")
 
 
 def launch_counts() -> dict:
@@ -107,9 +116,14 @@ def _load(name: str):
     if name == "gather_windows":
         fn = lib.gather_windows_launch
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-    else:
+    elif name == "slab_search":
         fn = lib.slab_search_launch
         fn.argtypes = [p, p, p, i, i, i, i, i, p]
+    else:
+        fn = lib.sao_frame_launch
+        fn.argtypes = [p] * 13 + [i] * 5 + [p, ctypes.c_longlong, p, p]
+        lib.sao_scratch_ints_per_ctu.argtypes = []
+        lib.sao_scratch_ints_per_ctu.restype = ctypes.c_int
     fn.restype = ctypes.c_int
     return lib
 
@@ -295,3 +309,73 @@ def slab_search(cur: torch.Tensor, slab: torch.Tensor, bs: int, ry: int,
     _raise_on(rc, "slab_search")
     _counts["slab_search"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# SAO (sao_stats, sao_decide, sao_apply)
+# ---------------------------------------------------------------------------
+
+SAO_CTU = 64          # the only CTU size the encoder admits (config.py)
+
+
+def check_sao_frame(org, rec, lam_y, lam_c, ctu: int, coded) -> bool:
+    """Checks the inputs of ops.sao.sao_frame: org and rec (Y, Cb, Cr)
+    contiguous int32 planes of luma [h, w] and chroma [h/2, w/2] with h
+    and w multiples of the CTU size 64; lam_y and lam_c one float32 each;
+    coded (bh, bw) within the luma plane, or None.  Raises on anything
+    else; returns True where the inputs lie on a CUDA device (the
+    kernels' route), False on the CPU (the plain version's)."""
+    if ctu != SAO_CTU:
+        raise ValueError(f"SAO: CTU {ctu}, the kernels take {SAO_CTU}")
+    names = ("org_y", "org_u", "org_v", "rec_y", "rec_u", "rec_v")
+    for name, t in zip(names, (*org, *rec)):
+        _check(t, name, 2)
+    h, w = rec[0].shape
+    if h % ctu or w % ctu:
+        raise ValueError(f"SAO: plane {h}x{w} is not CTU-aligned ({ctu})")
+    for name, t in zip(names, (*org, *rec)):
+        want = (h, w) if name.endswith("_y") else (h // 2, w // 2)
+        if tuple(t.shape) != want:
+            raise ValueError(f"SAO: {name} {tuple(t.shape)}, expected {want}")
+    for name, lam in (("lam_y", lam_y), ("lam_c", lam_c)):
+        if lam.dtype != torch.float32 or lam.numel() != 1:
+            raise TypeError(f"SAO: {name} must be one float32, got "
+                            f"{lam.dtype} {tuple(lam.shape)}")
+    if coded is not None and not (0 < coded[0] <= h and 0 < coded[1] <= w):
+        raise ValueError(f"SAO: coded {tuple(coded)} outside {h}x{w}")
+    return _on_cuda(*org, *rec, lam_y, lam_c)
+
+
+def sao_frame_launch(org, rec, lam_y, lam_c, avail_l: torch.Tensor,
+                     avail_u: torch.Tensor, merge: bool, coded):
+    """SAO of one frame on the card, inputs as check_sao_frame passed
+    them; avail_l / avail_u the [h/64, w/64] bool maps of
+    ops.sao.avail_lu_np on the planes' device.  Three launches on the
+    current stream, no synchronisation.  Returns ([new_y, new_u, new_v],
+    fields) with fields the int32 [3 * n | 3 * n * 4 | 3 * n] type,
+    offsets and band positions of the n CTUs, as ops.sao.pack_sao_fields
+    lays them out."""
+    h, w = rec[0].shape
+    n = (h // SAO_CTU) * (w // SAO_CTU)
+    if tuple(avail_l.shape) != (h // SAO_CTU, w // SAO_CTU) or \
+            avail_l.shape != avail_u.shape or avail_l.dtype != torch.bool \
+            or avail_u.dtype != torch.bool:
+        raise ValueError("SAO: avail maps must be bool [h/64, w/64]")
+    bh, bw = coded if coded is not None else (h, w)
+    dev = rec[0].device
+    lib = _lib("sao")
+    out = [torch.empty_like(r) for r in rec]
+    scratch = torch.empty(n * lib.sao_scratch_ints_per_ctu(),
+                          dtype=torch.int32, device=dev)
+    fields = torch.empty(18 * n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sao_frame_launch(
+            *(t.data_ptr() for t in (*org, *rec, *out)), lam_y.data_ptr(),
+            lam_c.data_ptr(), avail_l.data_ptr(), avail_u.data_ptr(), h, w,
+            int(bh), int(bw), int(merge), scratch.data_ptr(), scratch.numel(),
+            fields.data_ptr(), stream)
+    _raise_on(rc, "sao")
+    for k in SAO_KERNELS:
+        _counts[k] += 1
+    return out, fields

@@ -4,6 +4,10 @@ Port of homerhevc_tpu/ops/sao.py: class maps and per-CTU statistics as
 dense passes, iterate-toward-zero offsets, per-CTU mode decision, the
 two-pass merge-left / merge-up adoption, and the spec 8.7.3 apply.  The
 float32 costs follow the reference's evaluation order (ops/f32).
+
+`sao_frame` takes three CUDA kernels (csrc/sao.cu, through
+ops.kernels) for planes on the card and the plain version,
+`sao_frame_plain`, for planes on the CPU; both give the same bytes.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import numpy as np
 import torch
 
 from homerhevc_torch.models.schedule import tile_bounds
-from homerhevc_torch.ops import f32
+from homerhevc_torch.ops import f32, kernels
 
 _EO_NEIGHBORS = ((0, -1, 0, 1), (-1, 0, 1, 0), (-1, -1, 1, 1),
                  (-1, 1, 1, -1))
@@ -262,9 +266,34 @@ def _avail_lu(by: int, bx: int, tiles, device):
 def sao_frame(org_y, org_u, org_v, rec_y, rec_u, rec_v, lam_y, lam_c,
               ctu: int = 64, tiles=None, merge_rdo: bool = True,
               coded=None):
-    """Full-frame SAO encode: decide + apply for Y/Cb/Cr.  lam_y/lam_c
-    are float32 0-d tensors; with a (cols, rows) tile grid no CTU merges
-    across a tile boundary.  Returns (new_y, new_u, new_v, fields)."""
+    """Full-frame SAO encode: decide + apply for Y/Cb/Cr.  The planes are
+    contiguous int32, luma [h, w] and chroma [h/2, w/2] with h and w
+    multiples of the CTU size (64, the only one); lam_y/lam_c are
+    float32 0-d tensors; with a (cols, rows) tile grid no CTU merges
+    across a tile boundary; `coded` (bh, bw) bounds the edge classes.
+    Returns (new_y, new_u, new_v, fields), new planes: rec_* is not
+    written.  On a CUDA device three kernel launches (no host sync); on
+    the CPU the plain version.  Raises on any other input."""
+    org, rec = (org_y, org_u, org_v), (rec_y, rec_u, rec_v)
+    if not kernels.check_sao_frame(org, rec, lam_y, lam_c, ctu, coded):
+        return sao_frame_plain(*org, *rec, lam_y, lam_c, ctu, tiles,
+                               merge_rdo, coded)
+    by, bx = rec_y.shape[0] // ctu, rec_y.shape[1] // ctu
+    av_l, av_u = _avail_lu(by, bx, tiles, rec_y.device)
+    (new_y, new_u, new_v), buf = kernels.sao_frame_launch(
+        org, rec, lam_y, lam_c, av_l, av_u, merge_rdo and by * bx > 1,
+        coded)
+    n = by * bx
+    fields = dict(type=buf[:3 * n].view(3, by, bx),
+                  offsets=buf[3 * n:15 * n].view(3, by, bx, 4),
+                  band_pos=buf[15 * n:].view(3, by, bx))
+    return new_y, new_u, new_v, fields
+
+
+def sao_frame_plain(org_y, org_u, org_v, rec_y, rec_u, rec_v, lam_y, lam_c,
+                    ctu: int = 64, tiles=None, merge_rdo: bool = True,
+                    coded=None):
+    """The plain version of sao_frame, in eager torch ops."""
     by = bc = None
     if coded is not None:
         by = (coded[0], coded[1])

@@ -1,14 +1,15 @@
 """The port's kernel wrappers on the CPU (their plain versions) against
 the JAX package: the window gathers against me._gather_windows /
 me._gather_windows_ref and the Pallas kernels in interpret mode, the slab
-search against me.slab_search_jnp and slab_search_pallas.  Exact."""
+search against me.slab_search_jnp and slab_search_pallas.  Exact.  The
+wrappers' checks of their inputs, SAO's among them."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from homerhevc_torch.ops import kernels
+from homerhevc_torch.ops import kernels, sao
 from homerhevc_tpu.ops import me as jme
 from homerhevc_tpu.ops import pallas_kernels
 
@@ -143,3 +144,28 @@ def test_wrappers_reject_bad_inputs():
     counts = kernels.launch_counts()
     kernels.gather_windows(plane, idx, idx, 8)     # CPU: plain, no launch
     assert kernels.launch_counts() == counts
+
+
+def test_sao_wrapper_rejects_bad_inputs():
+    def planes(h=128, w=192):
+        return [torch.zeros(s, dtype=torch.int32)
+                for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))] * 2
+    lam = torch.tensor(10.0)
+    with pytest.raises(TypeError):            # a float plane
+        p = planes()
+        p[3] = p[3].float()
+        sao.sao_frame(*p, lam, lam)
+    with pytest.raises(ValueError):           # a non-contiguous plane
+        p = planes()
+        p[1] = torch.zeros((96, 64), dtype=torch.int32).T
+        sao.sao_frame(*p, lam, lam)
+    with pytest.raises(ValueError):           # a CTU other than 64
+        sao.sao_frame(*planes(), lam, lam, ctu=32)
+    with pytest.raises(ValueError):           # not CTU-aligned
+        sao.sao_frame(*planes(120, 176), lam, lam)
+    with pytest.raises(TypeError):            # a float64 lambda
+        sao.sao_frame(*planes(), lam.double(), lam)
+    counts = kernels.launch_counts()
+    sao.sao_frame(*planes(), lam, lam)        # CPU: plain, no launch
+    assert kernels.launch_counts() == counts
+    assert all(counts[k] == 0 for k in kernels.SAO_KERNELS)

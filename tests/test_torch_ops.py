@@ -3,10 +3,12 @@ transform, quant + sign-bit hiding, interpolation, RD bit estimates
 (float32, exact), intra prediction, deblocking, SAO and packing.  The JAX
 side runs jitted where its float32 evaluation order matters, as in the
 encoder.  Each test loops over its cases, so that the file stays a few
-items long for the test runner's per-file scheduling."""
+items long for the test runner's per-file scheduling; SAO's cases are
+items of their own."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from homerhevc_torch import tables
@@ -178,32 +180,39 @@ def test_deblock_luma_chroma():
             c, cbv, cbh))
 
 
-def test_sao_frame():
-    for qp, coded in [(32, None), (26, (120, 176))]:
-        case = (qp, coded)
-        rng = np.random.default_rng(qp)
-        h, w = 128, 192
-        org = [np.clip(rng.normal(128, 30, s), 0, 255).astype(np.int32)
-               for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
-        rec = [np.clip(o + rng.integers(-6, 7, o.shape)
-                       + (np.arange(o.shape[1]) % 7 == 0) * 4, 0, 255)
-               .astype(np.int32) for o in org]
-        lam = jax.jit(lambda q: jtables.rd_lambda(q, False))(jnp.int32(qp))
-        qpc = int(jtables.CHROMA_QP_TABLE[qp + 2])
-        lam_c = jax.jit(lambda q: jtables.rd_lambda(q, False))(
-            jnp.int32(qpc))
-        want = jax.jit(lambda *a: jsao.sao_frame(*a, ctu=64, coded=coded))(
-            *[jnp.asarray(a) for a in org + rec], lam, lam_c)
-        got = sao.sao_frame(*[_t(a) for a in org + rec],
-                            rdbits.rd_lambda_f32(torch.tensor(qp), False),
-                            rdbits.rd_lambda_f32(torch.tensor(qpc), False),
-                            ctu=64, coded=coded)
-        for g, wv in zip(got[:3], want[:3]):
-            _eq(g, wv, case)
-        for k in ("type", "offsets", "band_pos"):
-            _eq(got[3][k], want[3][k], (case, k))
-        _eq(sao.pack_sao_fields(got[3]), jsao.pack_sao_fields(want[3]),
-            case)
+# (qp, luma h x w, coded, tiles, merge_rdo): untiled with and without a
+# coded size, a 4x3 tile grid of 2x2 CTUs each, no merge RDO, and four CTU
+# rows whose coded height leaves a padded band in the last
+@pytest.mark.parametrize("qp, h, w, coded, tiles, merge_rdo", [
+    (32, 128, 192, None, None, True),
+    (26, 128, 192, (120, 176), None, True),
+    (30, 384, 512, None, (4, 3), True),
+    (34, 128, 192, None, None, False),
+    (28, 256, 192, (200, 192), None, True)])
+def test_sao_frame(qp, h, w, coded, tiles, merge_rdo):
+    case = (qp, h, w, coded, tiles, merge_rdo)
+    rng = np.random.default_rng(qp)
+    org = [np.clip(rng.normal(128, 30, s), 0, 255).astype(np.int32)
+           for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    rec = [np.clip(o + rng.integers(-6, 7, o.shape)
+                   + (np.arange(o.shape[1]) % 7 == 0) * 4, 0, 255)
+           .astype(np.int32) for o in org]
+    lam = jax.jit(lambda q: jtables.rd_lambda(q, False))(jnp.int32(qp))
+    qpc = int(jtables.CHROMA_QP_TABLE[qp + 2])
+    lam_c = jax.jit(lambda q: jtables.rd_lambda(q, False))(jnp.int32(qpc))
+    want = jax.jit(lambda *a: jsao.sao_frame(
+        *a, ctu=64, tiles=tiles, merge_rdo=merge_rdo, coded=coded))(
+        *[jnp.asarray(a) for a in org + rec], lam, lam_c)
+    got = sao.sao_frame(*[_t(a) for a in org + rec],
+                        rdbits.rd_lambda_f32(torch.tensor(qp), False),
+                        rdbits.rd_lambda_f32(torch.tensor(qpc), False),
+                        ctu=64, tiles=tiles, merge_rdo=merge_rdo,
+                        coded=coded)
+    for g, wv in zip(got[:3], want[:3]):
+        _eq(g, wv, case)
+    for k in ("type", "offsets", "band_pos"):
+        _eq(got[3][k], want[3][k], (case, k))
+    _eq(sao.pack_sao_fields(got[3]), jsao.pack_sao_fields(want[3]), case)
 
 
 def test_packing_tiers_bit_exact():
